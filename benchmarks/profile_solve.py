@@ -1,9 +1,9 @@
-"""Phase profile of the flagship BdG solve (VERDICT r1 item 8).
+"""Phase profile of the flagship BdG solve.
 
 The reference's cost model (SURVEY.md §3.1) ranks the hot loop as
 (1) operator applications, (2) tall GEMMs (Grams + project-back),
 (3) small dense eigensolves.  This script measures each phase of the
-TPU solve separately at the flagship shape and prints a per-iteration
+device solve separately at the flagship shape and prints a per-iteration
 phase table plus the fraction of the measured end-to-end iteration cost
 each phase explains — so kernel work can be prioritized by data.
 
@@ -12,7 +12,7 @@ Phases (one ilobpcg iteration, AX + B caches on — the r3 data flow):
   B_apply        B @ [n, ss] (antidiag swap) — x2 for the BX/BP cache,
                  x1 for the residual's B Xn
   gram_blocks_pre  S^H (B S) from pre-applied blocks (6 upper-triangle
-                 MXU dots, zero operator applications)
+                 dots, zero operator applications)
   a_gram         S^H A S with AX cache (2 A-applies + 6 triangle dots)
   project_back   [X, P] = S [Cx | Cp] (2 tall GEMMs)
   ortho_pass     one ortho_indefinite outer pass with Bvb supplied
@@ -111,7 +111,7 @@ def main() -> None:
         "pencil_eig": jax.jit(
             lambda GA, GB: pencil_eig_cholesky(GA, GB, 1e-20)[:2]
         ),
-        # The ortho_skip best case (VERDICT r3 ask 3): entry check fires
+        # The ortho_skip best case: entry check fires
         # on an already-B-orthonormal W, the whole projection+SVQB pass
         # is skipped, and the phase costs one B-apply + 2 small dots.
         "ortho_entry_skip": jax.jit(

@@ -1,12 +1,11 @@
 """Strong-scaling harness: row-sharded indefinite BdG solve over a mesh.
 
-BASELINE.json scaling target: >= 75% efficiency at N >= 2 hosts on the
-BdG pencil (measurement points: 1 chip, 1 host, N >= 2 hosts).  On a
-multi-chip slice this measures real ICI scaling; on a single-chip or
-CPU-only machine it runs the identical sharded program on a virtual
-device mesh (XLA_FLAGS=--xla_force_host_platform_device_count), which
-validates the SPMD lowering (psum'd Grams, halo collective-permutes) but
-not wall-clock scaling — the JSON notes which one it measured.
+BASELINE.json scaling target: >= 75% efficiency at N >= 2 devices on
+the BdG pencil.  On a multi-GPU host this measures real scaling over
+the interconnect; with --force-cpu it runs the identical sharded program
+on a virtual device mesh (XLA_FLAGS=--xla_force_host_platform_device_count),
+which validates the SPMD lowering (psum'd Grams, halo collective-permutes)
+but not wall-clock scaling — the JSON notes which one it measured.
 
 Usage: python benchmarks/scaling.py [--n 1048576] [--nev 16]
        [--devices 1 2 4 8] [--force-cpu]
@@ -53,6 +52,10 @@ def main() -> None:
     if args.force_cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from lobpcg_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from benchmarks.solve_bdg import BARRIER, SHIFT, WELL  # noqa: F401
     from lobpcg_tpu import (
         BlockAntiDiagOperator,
@@ -68,7 +71,7 @@ def main() -> None:
     sizes = args.devices or sorted(
         {s for s in (1, 2, 4, 8) if s <= n_avail}
     )
-    real_scaling = n_avail >= 2 and jax.default_backend() == "tpu"
+    real_scaling = n_avail >= 2 and jax.devices()[0].platform == "gpu"
 
     dtype = jnp.float32
     n = args.n
@@ -118,7 +121,9 @@ def main() -> None:
             "iterations": int(r.iterations),
             "converged": int(r.converged),
             "lam0": float(lam[0]),
-            "backend": jax.default_backend(),
+            "device": {"platform": jax.devices()[0].platform,
+                       "kind": jax.devices()[0].device_kind,
+                       "count": nd},
         }))
 
     if len(results) > 1:
@@ -131,11 +136,11 @@ def main() -> None:
             "value": eff[max(results)],
             "unit": "fraction",
             "per_mesh": {str(k): round(v, 4) for k, v in eff.items()},
-            "real_tpu_scaling": real_scaling,
+            "real_gpu_scaling": real_scaling,
             "note": (
-                "real multi-chip ICI scaling" if real_scaling else
-                "virtual-device SPMD validation only (single physical "
-                "chip/CPU); wall-clock efficiency is not meaningful"
+                "real multi-GPU scaling" if real_scaling else
+                "virtual-device SPMD validation only (CPU); wall-clock "
+                "efficiency is not meaningful"
             ),
         }))
 

@@ -5,8 +5,7 @@ Runs the same problem construction as solve_bdg.py with
 iteration the converged prefix, max/min residual over nev, the quality
 flag (1 good / 5 dual / +8 rr-fail / +16 stall-perturbed), and the
 first few eigenvalues' drift against the truncated-well oracle — the
-raw material for diagnosing the ss=256 convergence failure
-(results_r5.jsonl exps esc/d*).
+raw material for diagnosing wide-subspace (ss=256) convergence.
 
 Usage: python benchmarks/trace_solve.py --n 20000 --nev 150 --size-sub 256
 """
@@ -22,7 +21,12 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from solve_bdg import BARRIER, SHIFT, WELL, well_eigs_oracle  # noqa: E402
+from solve_bdg import (  # noqa: E402
+    BARRIER,
+    WELL,
+    well_eigs_oracle,
+    well_problem,
+)
 
 
 def main() -> None:
@@ -38,7 +42,6 @@ def main() -> None:
     ap.add_argument("--rr-dtype", default=None)
     ap.add_argument("--no-b-cache", action="store_true")
     ap.add_argument("--no-dual-basis", action="store_true")
-    ap.add_argument("--no-pack", action="store_true")
     ap.add_argument("--no-precond", action="store_true")
     ap.add_argument("--every", type=int, default=1,
                     help="print every Nth iteration")
@@ -52,39 +55,18 @@ def main() -> None:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from lobpcg_tpu import (
-        BlockAntiDiagOperator,
-        DiagonalOperator,
-        JacobiPreconditioner,
-        Laplacian1D,
-        SolverConfig,
-        ilobpcg,
-    )
+    from lobpcg_tpu import SolverConfig, ilobpcg
 
     dtype = jnp.dtype(args.dtype)
     n, nev, ss = args.n, args.nev, args.size_sub
-    m = n // 2
-    lo = (m - WELL) // 2
-    V = np.full(m, BARRIER + SHIFT, np.float64)
-    V[lo : lo + WELL] = SHIFT
-    Vd = jnp.asarray(V, dtype)
-    A = Laplacian1D(scale=jnp.asarray(1.0, dtype), n=n, segments=2) \
-        + DiagonalOperator(jnp.concatenate([Vd, Vd]))
-    B = BlockAntiDiagOperator(d=jnp.ones((m,), dtype))
-    T = None
-    if not args.no_precond:
-        T = JacobiPreconditioner(jnp.concatenate([2.0 + Vd, 2.0 + Vd]))
-
-    rng = np.random.RandomState(42)
-    u = np.zeros((m, ss), np.float32)
-    u[lo : lo + WELL] = rng.uniform(-0.5, 0.5, size=(WELL, ss))
-    X0 = jnp.asarray(np.concatenate([u, u], axis=0), dtype)
+    A, B, T, x0_np = well_problem(n, ss, dtype,
+                                  precond=not args.no_precond)
+    X0 = jnp.asarray(x0_np, dtype)
 
     cfg = SolverConfig(
         nev=nev, size_sub=ss, tol=args.tol, max_iter=args.max_iter,
         use_b_cache=not args.no_b_cache,
         dual_basis=not args.no_dual_basis,
-        pack_applies=not args.no_pack,
         rr_dtype=args.rr_dtype,
         record_history=True,
     )
@@ -102,7 +84,7 @@ def main() -> None:
         "dtype": str(dtype), "rr_dtype": str(cfg.resolved_rr_dtype(dtype)),
         "iterations": its, "converged": int(r.converged),
         "quality5": int(r.quality5_count), "rr_failed": int(r.rr_fail_count),
-        "backend": jax.default_backend(),
+        "device": jax.devices()[0].device_kind,
         "max_rel_err": float(np.max(
             np.abs(np.asarray(r.eigenvalues) - exact) / np.abs(exact))),
     }), flush=True)

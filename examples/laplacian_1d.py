@@ -2,7 +2,7 @@
 
 The reference planned (but never shipped) an examples/ directory
 (`/root/reference/examples/Makefile`, `TODO.md:371-372`); these scripts
-fill that role for the TPU build.
+fill that role.
 
 Run: python examples/laplacian_1d.py
 """

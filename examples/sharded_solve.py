@@ -2,7 +2,7 @@
 
 The operator rows and the tall [n, k] blocks are 1-D partitioned over the
 mesh; XLA's SPMD partitioner lowers Gram contractions to local GEMMs +
-psum over ICI and the stencil to local compute + halo collective-permute.
+psum and the stencil to local compute + halo collective-permute.
 The solver code is unchanged — sharding is carried by the arrays.
 
 On a machine without multiple accelerators this runs on 8 virtual CPU

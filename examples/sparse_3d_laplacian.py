@@ -1,9 +1,8 @@
 """Sparse operator path: 3-D Laplacian as CSR -> block-ELL (BSR) SpMM.
 
 Host-side preprocessing (COO->CSR->BSR blocking) runs through the native
-C++ library when built (`make -C native`), with NumPy/SciPy fallbacks.
-On TPU with f32 and a 128-multiple block width, the SpMM dispatches to
-the Pallas scalar-prefetch block-ELL kernel.
+C++ library (built on first use, or by `make -C native`), with
+NumPy/SciPy fallbacks; the device runs the block-ELL gather + einsum.
 
 Run: python examples/sparse_3d_laplacian.py
 """

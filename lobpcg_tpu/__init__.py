@@ -1,11 +1,12 @@
-"""lobpcg_tpu — a TPU-native LOBPCG eigensolver framework.
+"""lobpcg_tpu — a block LOBPCG eigensolver framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of
+A from-scratch JAX/XLA re-design of the capability set of
 pstuermer/LOBPCG (standard, generalized, and indefinite LOBPCG with
 Duersch-Ye robust basis selection and Kressner-Pandur-Shao indefinite
-Rayleigh-Ritz), built for TPU meshes: block-native matrix-free operators,
-fixed-shape masked soft locking, on-device projected eigensolves, and
-row-sharded operators with psum'd Gram reductions.
+Rayleigh-Ritz) for accelerators and device meshes: block-native
+matrix-free operators, fixed-shape masked soft locking, on-device
+projected eigensolves, and row-sharded operators with psum'd Gram
+reductions.
 """
 
 from lobpcg_tpu.config import SolverConfig
@@ -46,7 +47,6 @@ from lobpcg_tpu.utils.checkpoint import (
 from lobpcg_tpu.utils.plan import (
     estimate_peak_gb,
     plan_config,
-    probe_hbm_gb,
 )
 
 # The reference exposes `klobpcg` as a pure alias of the standard solver
@@ -85,7 +85,6 @@ __all__ = [
     "solve_checkpointed",
     "estimate_peak_gb",
     "plan_config",
-    "probe_hbm_gb",
 ]
 
 __version__ = "0.1.0"

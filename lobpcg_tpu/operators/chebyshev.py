@@ -2,7 +2,7 @@
 
 The reference accepts an arbitrary user preconditioner T
 (`include/lobpcg/linop.h`, applied at `src/core/lobpcg_impl.inc:152-155`)
-but ships none.  On TPU the natural accelerator is a matrix polynomial:
+but ships none.  On an accelerator the natural one is a matrix polynomial:
 p(A) costs `degree` extra operator applications per T-apply — pure SpMM
 throughput, which the hardware has in abundance — and collapses the
 iteration count for stiff spectra (1/h^2-scaled Laplacians need
@@ -45,9 +45,6 @@ class ChebyshevFilter(LinearOperator):
     hi: jax.Array  # scalar: upper edge (>= spectral radius)
     degree: int = 8
     chunk: int = 0  # 0 = whole block at once
-
-    def apply_width_ok(self, k):
-        return self.op.apply_width_ok(k)
 
     def matmat(self, X):
         n, k = X.shape

@@ -2,9 +2,10 @@
 
 The reference exposes a per-column ``matvec`` callback
 (`/root/reference/include/lobpcg/linop.h:13-53`) and applies it in a
-column-at-a-time loop (`src/gram/gram_impl.inc:29-33`).  On TPU that loop
-is an anti-pattern: the MXU wants the whole [n, k] block at once, so the
-operator contract here is ``matmat(X: [n, k]) -> [n, k]``.  Every concrete
+column-at-a-time loop (`src/gram/gram_impl.inc:29-33`).  On an
+accelerator that loop is an anti-pattern: one [n, k] block apply streams
+the operator once for all k columns, so the operator contract here is
+``matmat(X: [n, k]) -> [n, k]``.  Every concrete
 operator is a JAX pytree, so operators flow through ``jit`` /
 ``lax.while_loop`` / ``shard_map`` as ordinary traced state.
 """
@@ -38,22 +39,6 @@ class LinearOperator(abc.ABC):
 
     def __call__(self, X: jax.Array) -> jax.Array:
         return self.matmat(X)
-
-    def apply_width_ok(self, k: int) -> bool:
-        """Does applying at block width k run this operator's fast path?
-
-        TPU lane economics: the Pallas stencil/BSR kernels need 128-lane
-        multiples (sub-128 operands cost a 2x-padded layout copy plus
-        strided DMAs — ops/pallas/stencil.py module docstring), so a
-        width-64 apply is slow while a width-128 apply is not.  Callers
-        with two adjacent same-width applies (A@P and A@W in the Gram
-        assembly) consult this to decide whether to PACK them into one
-        lane-aligned call (ops.gram.apply_block_op_pair) — strictly
-        fewer HBM bytes than two misaligned applies.  Width-indifferent
-        operators return True so packing never triggers for them.
-        """
-        del k
-        return True
 
     # --- composition sugar -------------------------------------------------
     def __add__(self, other: "LinearOperator") -> "LinearOperator":
@@ -103,7 +88,8 @@ class DenseOperator(LinearOperator):
     A: jax.Array  # [n, n]
 
     def matmat(self, X):
-        return jnp.matmul(self.A, X, preferred_element_type=X.dtype)
+        return jnp.matmul(self.A, X, precision=jax.lax.Precision.HIGHEST,
+                          preferred_element_type=X.dtype)
 
     @property
     def shape(self):
@@ -178,7 +164,7 @@ class CallableOperator(LinearOperator):
         return self._dtype
 
 
-@operator(data_fields=("scale",), meta_fields=("n", "segments", "pad_lanes"))
+@operator(data_fields=("scale",), meta_fields=("n", "segments"))
 class Laplacian1D(LinearOperator):
     """Segmented 1-D Dirichlet Laplacian: block-diag of `segments`
     independent tridiag[-1, 2, -1] * scale stencils (scale = 1/h^2).
@@ -187,77 +173,19 @@ class Laplacian1D(LinearOperator):
     eigenvalues (k*pi)^2) and the BdG block-Laplacian A = diag(K, K)
     (`tests/test_ilobpcg.c:28-52`, segments=2).
 
-    On TPU f32/bf16 this dispatches to the Pallas streaming stencil
-    kernel (ops/pallas/stencil.py) for 128-multiple block widths (a
-    sub-128-lane pallas operand costs a 2x-padded layout copy, so pick
-    size_sub in multiples of 128); otherwise a pad/slice jnp formulation
-    that XLA fuses (and, under row-sharding, turns into local stencils +
-    halo collective-permutes).
+    A pad/slice formulation: XLA fuses the pad, the shifted slices and
+    the axpy into one loop that reads X once and writes Y once, together
+    with any elementwise term summed onto it (the flagship's
+    ``Laplacian1D + DiagonalOperator``).  Under row sharding the
+    partitioner turns the slices into local stencils plus halo
+    collective-permutes.
     """
 
     scale: jax.Array  # scalar 1/h^2
     n: int = 0
     segments: int = 1
-    # Pad-to-128-lanes path for sub-128 apply widths: bit-identical to
-    # the jnp fallback (verified on-chip) but the pad+output transients
-    # RAISE PEAK HBM substantially at capacity-bound sizes — XLA's
-    # memory analysis measured the 4M x 64 flagship's lean rung at
-    # 15.35 GiB with padding vs 10.58 GiB without (and every padded 4M
-    # solve ResourceExhausted'd in the r4 session), because each padded
-    # apply holds [n, 128] pad + output buffers where the fused jnp
-    # path held [n, 64] (benchmarks/results_r4.jsonl 5e-5h).  Off by
-    # default; the pair-PACKING path (ops.gram.apply_block_op_pair) is
-    # the peak-free way to lane-align the Gram-assembly applies.
-    pad_lanes: bool = False
-
-    def apply_width_ok(self, k):
-        from lobpcg_tpu.ops.pallas.stencil import stencil_shape_ok
-
-        if jax.default_backend() != "tpu":
-            return True  # jnp path is width-indifferent off-TPU
-        if jnp.dtype(self.dtype) not in (
-            jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16)
-        ):
-            return True  # no kernel at any width (complex/f64)
-        return stencil_shape_ok(self.n, k, self.segments, self.dtype)
 
     def matmat(self, X):
-        from lobpcg_tpu.ops.pallas.stencil import (
-            stencil_matmat_pallas,
-            stencil_supported,
-        )
-
-        if stencil_supported(X, self.segments):
-            return stencil_matmat_pallas(
-                X, self.scale, num_segments=self.segments
-            )
-        k = X.shape[1]
-        kp = -(-k // 128) * 128
-        if (
-            self.pad_lanes
-            and kp != k
-            and stencil_supported(
-                jax.ShapeDtypeStruct((self.n, kp), X.dtype), self.segments
-            )
-        ):
-            # Lane-pad path for sub-128 widths (VERDICT r3 ask 2): an
-            # explicit zero-pad to the next 128-lane multiple feeds the
-            # streaming kernel an aligned operand.  The pad costs one
-            # [n, kp] write, but the kernel then runs at full rate
-            # instead of the jnp fallback's ~3x-read pad/slice fusion.
-            # (The direct sub-128 pallas call is worse than either:
-            # strided 256B DMAs + a hidden 2x-padded layout copy of the
-            # compact operand, ops/pallas/stencil.py docstring.)
-            Xp = jnp.pad(X, ((0, 0), (0, kp - k)))
-            return stencil_matmat_pallas(
-                Xp, self.scale, num_segments=self.segments
-            )[:, :k]
-        # Fallback (CPU, tiny widths/segments, complex dtypes —
-        # complex<->f32 bitcasts are unimplemented on the TPU backend, so
-        # no zero-copy reinterpret into the f32 kernel): pad + slice.
-        # This formulation lowers 4-100x faster on TPU than the
-        # zero-concatenate shift-add (measured 72 vs 0.1 GB/s at
-        # [4M, 64]).
         k = X.shape[1]
         Xs = X.reshape(self.segments, self.n // self.segments, k)
         Xp = jnp.pad(Xs, ((0, 0), (1, 1), (0, 0)))
@@ -283,9 +211,6 @@ class BlockDiagOperator(LinearOperator):
 
     inner: LinearOperator
     copies: int = 2
-
-    def apply_width_ok(self, k):
-        return self.inner.apply_width_ok(k)
 
     def matmat(self, X):
         m = self.inner.shape[0]
@@ -339,9 +264,6 @@ class ShiftedOperator(LinearOperator):
     op: LinearOperator
     sigma: jax.Array
 
-    def apply_width_ok(self, k):
-        return self.op.apply_width_ok(k)
-
     def matmat(self, X):
         return self.op.matmat(X) + self.sigma * X
 
@@ -358,9 +280,6 @@ class ShiftedOperator(LinearOperator):
 class ScaledOperator(LinearOperator):
     op: LinearOperator
     alpha: jax.Array
-
-    def apply_width_ok(self, k):
-        return self.op.apply_width_ok(k)
 
     def matmat(self, X):
         return self.alpha * self.op.matmat(X)
@@ -379,9 +298,6 @@ class SumOperator(LinearOperator):
     left: LinearOperator
     right: LinearOperator
 
-    def apply_width_ok(self, k):
-        return self.left.apply_width_ok(k) and self.right.apply_width_ok(k)
-
     def matmat(self, X):
         return self.left.matmat(X) + self.right.matmat(X)
 
@@ -398,9 +314,6 @@ class SumOperator(LinearOperator):
 class ComposedOperator(LinearOperator):
     outer: LinearOperator
     inner: LinearOperator
-
-    def apply_width_ok(self, k):
-        return self.outer.apply_width_ok(k) and self.inner.apply_width_ok(k)
 
     def matmat(self, X):
         return self.outer.matmat(self.inner.matmat(X))

@@ -1,11 +1,11 @@
-"""Materialized sparse operators: BSR/ELL on TPU.
+"""Materialized sparse operators: block-ELL SpMM.
 
 Covers the reference's "sparse operator through the LinearOperator
 interface" capability (`README.md:14`, dense/sparse/matrix-free all flow
-through matvec) the TPU way: the host-side native library
-(native/sparse_prep.cpp via utils.native) assembles COO -> CSR -> BSR,
-optionally RCM-reorders for bandwidth, pads to ELL, and the device sees a
-block-ELL SpMM (Pallas MXU kernel on TPU f32; gather+einsum elsewhere).
+through matvec): the host-side native library (native/sparse_prep.cpp
+via utils.native) assembles COO -> CSR -> BSR, optionally RCM-reorders
+for bandwidth, pads to ELL, and the device runs a gather + batched
+block contraction (`bsr_matmat_reference`).
 """
 
 from __future__ import annotations
@@ -34,53 +34,42 @@ def _bsr_to_ell(bip: np.ndarray, bix: np.ndarray, bv: np.ndarray):
     return cols, vals
 
 
-@operator(
-    data_fields=("block_cols", "blocks", "win_lo", "win_vals"),
-    meta_fields=("n",),
-)
+def bsr_matmat_reference(
+    block_cols: jax.Array, blocks: jax.Array, X: jax.Array
+) -> jax.Array:
+    """Block-ELL SpMM Y = A @ X: gather the block rows of X each stored
+    block touches, then one batched [bs, bs] x [bs, k] contraction.
+    X may hold more block rows than A (a halo-extended shard frame);
+    Y has one block row per row of ``block_cols``.
+
+    HIGHEST precision: an f32 product on a GPU would otherwise be
+    allowed to run in TF32 (about three decimal digits).
+    """
+    nb, R, bs, _ = blocks.shape
+    k = X.shape[1]
+    Xb = X.reshape(X.shape[0] // bs, bs, k)
+    Xg = Xb[block_cols]  # [nb, R, bs, k]
+    Y = jnp.einsum(
+        "nrij,nrjk->nik", blocks, Xg,
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=X.dtype,
+    )
+    return Y.reshape(nb * bs, k)
+
+
+@operator(data_fields=("block_cols", "blocks"), meta_fields=("n",))
 class BSROperator(LinearOperator):
-    """Block-ELL sparse operator with a strip-window fast path.
+    """Block-ELL sparse operator.
 
     block_cols: [nb, R] int32 block-column indices (padding -> 0)
     blocks:     [nb, R, bs, bs] dense blocks (padding -> zeros)
-    win_lo/win_vals: optional strip-window re-expansion (built by the
-    constructors for windowable — banded / RCM-reordered — matrices;
-    see ops/pallas/bsr.ell_to_strip_window): per 128-row strip one
-    contiguous block-column window, applied as a single gather DMA +
-    one [128, W] x [W, k] MXU contraction on TPU.
     """
 
     block_cols: jax.Array
     blocks: jax.Array
-    win_lo: jax.Array = None
-    win_vals: jax.Array = None
     n: int = 0
 
-    def apply_width_ok(self, k):
-        if jax.default_backend() != "tpu":
-            return True
-        if self.blocks.dtype != jnp.float32 or self.blocks.shape[2] % 8:
-            return True  # no kernel at any width
-        return k % 128 == 0  # both Pallas paths need lane alignment
-
     def matmat(self, X):
-        from lobpcg_tpu.ops.pallas.bsr import (
-            bsr_matmat_pallas,
-            bsr_matmat_reference,
-            bsr_supported,
-            bsr_window_matmat_pallas,
-            bsr_window_supported,
-        )
-
-        bs = self.blocks.shape[2]
-        if self.win_vals is not None and bsr_window_supported(
-            self.win_vals, X, bs
-        ):
-            return bsr_window_matmat_pallas(
-                self.win_lo, self.win_vals, X, bs=bs
-            )
-        if bsr_supported(self.blocks, X):
-            return bsr_matmat_pallas(self.block_cols, self.blocks, X)
         return bsr_matmat_reference(self.block_cols, self.blocks, X)
 
     @property
@@ -106,36 +95,9 @@ class BSROperator(LinearOperator):
             np.asarray(vals, np.float64),
         )
         cols, blocks = _bsr_to_ell(bip, bix, bv)
-        from lobpcg_tpu.ops.pallas.bsr import (
-            ell_to_strip_window,
-            bsr_window_widths,
-        )
-
-        # Build the strip-window fast path when the matrix is windowable:
-        # padding every strip to the max column span must not blow up
-        # storage (cap the window chunks at ~4x the ELL bytes).
-        # strip ~256: the r3 strip sweep (benchmarks/results_r3.jsonl
-        # 8a-c) measured 256-row strips 6.5% faster than 128 at the
-        # banded 1M/bs=8/k=128 shape — halving the ~1 us/grid-step
-        # overhead beats the wider window's extra bytes; 512 loses.
-        # The strip must be a block-row multiple (the converter and the
-        # kernel slice whole blocks), so round 256 up to one for block
-        # sizes that don't divide it (e.g. 24 -> 264).
-        win_lo = win_vals = None
-        strip = block_size * (-(-256 // block_size))
-        Wb = bsr_window_widths(cols, blocks, strip=strip)
-        nb, R = cols.shape
-        if Wb * block_size <= 4096 and Wb <= 4 * R + 16:
-            lo, wv = ell_to_strip_window(
-                cols, blocks.astype(dtype), strip=strip
-            )
-            win_lo = jnp.asarray(lo)
-            win_vals = jnp.asarray(wv, dtype)
         return cls(
             block_cols=jnp.asarray(cols),
             blocks=jnp.asarray(blocks, dtype),
-            win_lo=win_lo,
-            win_vals=win_vals,
             n=n,
         )
 

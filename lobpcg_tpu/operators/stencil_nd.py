@@ -2,12 +2,12 @@
 
 The reference's sparse flagship is the "3D Laplacian (stencil CSR)"
 (BASELINE.json config 1), which it would funnel through the generic
-matvec callback.  The TPU-native fast path for structured grids skips
-the sparse machinery entirely: a 7-point (3-D) or 5-point (2-D) stencil
-is a handful of shifted adds on a [nx, ny, nz, k] view — one fused XLA
-pass, and under row sharding of the flattened leading axis the leading
-dimension's neighbor exchange lowers to collective-permutes while the
-inner dimensions stay local.
+matvec callback.  The fast path for structured grids skips the sparse
+machinery entirely: a 7-point (3-D) or 5-point (2-D) stencil is a
+handful of shifted adds on a [nx, ny, nz, k] view, which XLA fuses into
+one pass over X.  Under row sharding of the flattened leading axis the
+leading dimension's neighbor exchange lowers to collective-permutes
+while the inner dimensions stay local.
 
 Matches `operators.sparse.laplacian_3d_csr` numerically (same h and
 Dirichlet BCs), without materializing any sparse structure.
@@ -20,38 +20,6 @@ import jax
 import jax.numpy as jnp
 
 from lobpcg_tpu.operators.linop import LinearOperator, operator
-
-
-def _axis_pass(X: jax.Array, grid, axis: int, k: int,
-               force_jnp: bool = False) -> jax.Array:
-    """tridiag[-1, 2, -1] along one grid axis of flattened X, returned
-    flat [n, k].
-
-    Separable dispatch (measured on v5e, 160^3 x 128 f32): viewing the
-    pass as a segmented 1-D stencil on [prod(grid[:axis+1]),
-    prod(grid[axis+1:]) * k] runs through the Pallas streaming kernel at
-    300-400 GB/s for the inner axes; the leading axis (rows too wide for
-    VMEM tiles) uses a jnp pad+slice that XLA lowers at ~280 GB/s.  The
-    all-jnp N-D formulation runs the whole operator at ~12 GB/s, ~7x
-    slower end to end.
-    """
-    from lobpcg_tpu.ops.pallas.stencil import (
-        stencil_matmat_pallas,
-        stencil_supported,
-    )
-
-    rows = int(np.prod(grid[: axis + 1]))
-    width = (int(np.prod(grid)) // rows) * k
-    segments = rows // grid[axis]
-    Xv = X.reshape(rows, width)
-    # VMEM bound: the kernel holds ~4 tiles of (>=24, width) f32.
-    fits_vmem = width * 4 * 24 * 4 <= 12 * (1 << 20)
-    if not force_jnp and fits_vmem and stencil_supported(Xv, segments):
-        return stencil_matmat_pallas(
-            Xv, jnp.ones((), X.dtype), num_segments=segments
-        ).reshape(X.shape)
-    Xg = X.reshape(*grid, k)
-    return _lap_along(Xg, axis).reshape(X.shape)
 
 
 def _lap_along(Xg: jax.Array, axis: int) -> jax.Array:
@@ -69,7 +37,7 @@ def _lap_along(Xg: jax.Array, axis: int) -> jax.Array:
     return 2.0 * Xg - Xp[sl(2, n + 2)] - Xp[sl(0, n)]
 
 
-@operator(data_fields=("scale",), meta_fields=("grid", "force_jnp"))
+@operator(data_fields=("scale",), meta_fields=("grid",))
 class LaplacianND(LinearOperator):
     """Dirichlet Laplacian on a structured grid, flattened C-order.
 
@@ -81,30 +49,11 @@ class LaplacianND(LinearOperator):
 
     scale: jax.Array
     grid: tuple = ()
-    # Under row sharding the Pallas per-axis dispatch cannot partition
-    # (pallas_call has no SPMD rule); shard_problem rewrites the operator
-    # with force_jnp=True so GSPMD derives halos from the pad/slice form.
-    force_jnp: bool = False
 
     def matmat(self, X):
-        k = X.shape[1]
-        n = int(np.prod(self.grid))
-        if not self.force_jnp and len(self.grid) == 3:
-            # Fused single-pass 7-point kernel: X streamed once (ring of
-            # i-planes in VMEM) instead of three separable passes.
-            from lobpcg_tpu.ops.pallas.stencil3d import (
-                stencil3d_matmat_pallas,
-                stencil3d_supported,
-            )
-
-            if stencil3d_supported(X, self.grid):
-                return stencil3d_matmat_pallas(
-                    X, self.scale, grid_shape=tuple(self.grid)
-                )
-        Y = None
-        for ax in range(len(self.grid)):
-            p = _axis_pass(X, self.grid, ax, k, force_jnp=self.force_jnp)
-            Y = p if Y is None else Y + p
+        n, k = X.shape
+        Xg = X.reshape(*self.grid, k)
+        Y = sum(_lap_along(Xg, ax) for ax in range(len(self.grid)))
         return (self.scale * Y).reshape(n, k)
 
     @property

@@ -4,13 +4,13 @@ Reference: `src/gram/gram_impl.inc:49-105` (operator form) and
 `src/gram/gram_mat_impl.inc:33-89` (explicit dense metric form, used on
 coefficient space inside the indefinite RR).
 
-TPU design: one `jnp.matmul` per Gram — a [k, n] x [n, k] contraction that
-XLA maps straight onto the MXU.  Under row-sharding of the n axis the
-contraction lowers to a local partial product plus an all-reduce (psum)
-over the mesh, which is exactly the distributed-Gram plan of SURVEY.md
-SS2.6.  No upper/lower-triangle asymmetry: we always form the full k x k
-matrix (k <= 3*size_sub, tiny) and let `eigh`'s symmetrization handle
-round-off.
+Design: one `jnp.matmul` per Gram — a [k, n] x [n, k] contraction that
+XLA hands to the device's matrix-product library.  Under row-sharding
+of the n axis the contraction lowers to a local partial product plus an
+all-reduce (psum) over the mesh, which is exactly the distributed-Gram
+plan of SURVEY.md SS2.6.  No upper/lower-triangle asymmetry: we always
+form the full k x k matrix (k <= 3*size_sub, tiny) and let `eigh`'s
+symmetrization handle round-off.
 """
 
 from __future__ import annotations
@@ -23,10 +23,12 @@ import jax.numpy as jnp
 from lobpcg_tpu.operators.linop import LinearOperator
 
 
-# MXU precision for the numerically-sensitive contractions below.  The
-# default (HIGHEST, 6 bf16 passes = full f32) is trace-time switchable
-# to HIGH (bf16_3x, 3 passes) via `precision_ctx` — the solvers wrap
-# their trace in it according to SolverConfig.gram_precision.  A plain
+# Precision of the numerically-sensitive contractions below.  The
+# default (HIGHEST: full f32 products, no TF32 tensor-core rounding on a
+# GPU) is trace-time switchable to HIGH (which XLA's GPU backend may
+# compute with reduced-precision tensor-core passes) via `precision_ctx`
+# — the solvers wrap their trace in it according to
+# SolverConfig.gram_precision.  A plain
 # module global is safe here: it is only read while TRACING (the value
 # is baked into the compiled program), and tracing is driven
 # single-threaded by the public solver entry points.
@@ -39,7 +41,7 @@ _PRECISION_NAMES = {
 
 
 class precision_ctx:
-    """Context manager: set the Gram-contraction MXU precision for any
+    """Context manager: set the Gram-contraction precision for any
     tracing performed inside (restores the previous value on exit)."""
 
     def __init__(self, name_or_precision):
@@ -57,14 +59,13 @@ class precision_ctx:
 
 
 def mm(A: jax.Array, B: jax.Array) -> jax.Array:
-    """Numerically-sensitive matmul: full-precision MXU passes.
+    """Numerically-sensitive matmul at the Gram precision.
 
-    On TPU, f32 matmuls default to bf16 MXU passes; for Gram assembly and
-    basis transforms that destroys orthogonality at operator scales like
-    1/h^2 ~ 1e6 (observed: eigenvalues 60x off on a v5e).  Precision
-    HIGHEST (default; see `precision_ctx`) requests the multi-pass
-    full-f32 product.  The operator application hot path (SpMM) is NOT
-    forced through this — operators choose their own precision.
+    At DEFAULT precision an f32 product may run in TF32 on a GPU (about
+    three decimal digits); for Gram assembly and basis transforms that
+    destroys orthogonality at operator scales like 1/h^2 ~ 1e6.
+    Precision HIGHEST (default; see `precision_ctx`) requests the full
+    f32 product.  Operators choose their own precision for the apply.
     """
     return jnp.matmul(
         A, B, precision=_PRECISION[0],
@@ -83,85 +84,25 @@ def apply_block_op(op: Optional[LinearOperator], X: jax.Array) -> jax.Array:
     return op.matmat(X)
 
 
-def _pack_pair_ok(op, ku: int, kv: int) -> bool:
-    """Pack two adjacent same-width applies into one wide call iff the
-    operator's fast path needs the combined (lane-aligned) width."""
-    return (
-        op is not None
-        and ku == kv
-        and not op.apply_width_ok(ku)
-        and op.apply_width_ok(ku + kv)
-    )
-
-
-def apply_block_op_pair(op, U: jax.Array, V: jax.Array):
-    """(op @ U, op @ V), packed into ONE [n, ku+kv] apply when that is
-    the operator's fast path (VERDICT r3 ask 2: lane packing).
-
-    Any linear operator acts column-independently, so
-    op @ [U | V] = [op@U | op@V] always; packing is purely a layout
-    decision.  For the 4M x 64 flagship the two [n, 64] stencil applies
-    would each take the jnp fallback (k % 128 gate); one [n, 128] call
-    streams through the Pallas kernel — strictly fewer HBM bytes than
-    two misaligned applies, at the cost of one concatenate.  Width-ok
-    operators (k already aligned, dense, diagonal, CPU) apply
-    separately, unchanged.
-    """
-    if op is None:
-        return U, V
-    if _pack_pair_ok(op, U.shape[1], V.shape[1]):
-        ku = U.shape[1]
-        Y = op.matmat(jnp.concatenate([U, V], axis=1))
-        return Y[:, :ku], Y[:, ku:]
-    return op.matmat(U), op.matmat(V)
-
-
-def applied_blocks(op, blocks, pre=None, pack=True):
-    """[op @ b for b in blocks], reusing ``pre[j]`` where given and
-    lane-packing adjacent same-width applies when the operator prefers
-    the combined width (apply_block_op_pair).  Feeds herm_tile_gram.
-
-    Without packing, applications happen one block at a time so only a
+def applied_blocks(op, blocks, pre=None):
+    """[op @ b for b in blocks], reusing ``pre[j]`` where given.  Feeds
+    herm_tile_gram.  Applications happen one block at a time, so only a
     single [n, m] transient is live (the memory posture of _a_gram /
-    gram_blocks); a packed pair holds one [n, 2m] transient instead —
-    same bytes as the two singles combined, +1 block of peak vs the
-    strictly-sequential schedule.
-
-    Known limitation (ADVICE r4): only ADJACENT todo entries pair up,
-    so with the AX cache disabled the (X, P, W) todo list packs (X, P)
-    and leaves W on the sub-128 fallback every iteration.  Kept simple
-    deliberately: ax_cache is on by default (todo is then (P, W), which
-    packs), and a best-fit matcher would buy nothing on every
-    configuration measured so far.
-    """
+    gram_blocks)."""
     pre = pre or {}
-    n_b = len(blocks)
-    todo = [j for j in range(n_b) if pre.get(j) is None]
-    applied = [pre.get(j) for j in range(n_b)]
-    i = 0
-    while i < len(todo):
-        j = todo[i]
-        if pack and i + 1 < len(todo):
-            j2 = todo[i + 1]
-            if _pack_pair_ok(op, blocks[j].shape[1], blocks[j2].shape[1]):
-                applied[j], applied[j2] = apply_block_op_pair(
-                    op, blocks[j], blocks[j2]
-                )
-                i += 2
-                continue
-        applied[j] = apply_block_op(op, blocks[j])
-        i += 1
-    return applied
+    return [
+        pre[j] if pre.get(j) is not None else apply_block_op(op, b)
+        for j, b in enumerate(blocks)
+    ]
 
 
 # Row-chunking for WIDENED-precision contractions (trace-time, like
-# _PRECISION).  Why: on TPU an f64-accumulated f32 dot is emulated by
-# splitting BOTH tall operands into stacked multi-pass components —
-# measured at the 1M x 256 escalated solve: loop-carried
-# f32[8, 256, 1M] + f32[8, 1M, 256] split stacks (7.63 GiB EACH) plus
-# bf16[4, 256, 1M] pass temps, for a 57.4 GiB compile peak on a 16 GB
-# chip (results_r4.jsonl exp 6p1M — serializing the dots did NOT remove
-# them; they are per-dot emulation operands, not dot-merger output).
+# _PRECISION).  Why: a backend without native f64 products emulates an
+# f64-accumulated f32 dot by splitting BOTH tall operands into stacked
+# multi-pass components, several times the operand bytes.  The only
+# evidence is from the previous accelerator this code ran on (a 57 GiB
+# compile peak at the 1M x 256 escalated solve); the H100 has f64 in
+# hardware, so whether the knob still earns its place is open.
 # Chunking the contraction over rows via lax.scan bounds the split
 # stacks to [*, k, chunk] — the k x k f64 accumulator is exact f64
 # accumulation, bit-comparable to the unchunked dot up to addition
@@ -189,10 +130,10 @@ class mixed_chunk_ctx:
 def with_gram_ctx(fn):
     """Decorator for solver impl functions (signature
     ``fn(A, B, T, X0, key, config, *rest)``): applies the trace-time
-    Gram contexts — MXU precision and widened-Gram row chunking — from
-    ``config`` around the traced body, so DIRECT jit users of the impl
-    (mem_analysis, graft entries) get the same compiled program as the
-    public entry points."""
+    Gram contexts — contraction precision and widened-Gram row
+    chunking — from ``config`` around the traced body, so DIRECT jit
+    users of the impl (mem_analysis, graft entries) get the same
+    compiled program as the public entry points."""
     import functools
 
     @functools.wraps(fn)
@@ -211,7 +152,7 @@ def _hdot(V: jax.Array, U: jax.Array, out_dtype=None) -> jax.Array:
     precision via preferred_element_type — the tall inputs stay in their
     storage dtype in HBM; only the k x k result is high-precision.
     Widened contractions row-chunk under `mixed_chunk_ctx` (see
-    _MIXED_CHUNK for the TPU f64-emulation memory rationale).
+    _MIXED_CHUNK for the f64-emulation memory rationale).
     """
     dt = jnp.dtype(out_dtype) if out_dtype is not None else U.dtype
     c = _MIXED_CHUNK[0]
@@ -334,10 +275,8 @@ def herm_tile_gram(blocks, applied, out_dtype=None) -> jax.Array:
     """G = S^H (Op S) assembled from UPPER-TRIANGLE tall contractions
     only, mirroring the lower tiles as G_ji = G_ij^H — valid because Op
     is Hermitian (the problem contract for both A and B).  For 3 blocks
-    this is 6 [m, n] x [n, m] MXU contractions instead of 9; at
-    Precision.HIGHEST (6 bf16 passes) the tall dots dominate the Gram
-    phases (~41% of an ilobpcg iteration, benchmarks/profile_solve.py),
-    so the triangle saves a third of that.  The reference's gram kernels
+    this is 6 [m, n] x [n, m] contractions instead of 9, a third of the
+    tall Gram work.  The reference's gram kernels
     also exploit symmetry — via BLAS upper-triangle updates
     (`src/gram/gram_impl.inc:49-67`); this is the block-tile analog.
 
@@ -380,8 +319,7 @@ def gram_blocks_pre(blocks, Bblocks, out_dtype=None) -> jax.Array:
     iteration and receives B@W from the ortho pass's last inner-loop
     application, so the per-iteration B-Gram costs only the k x k
     contractions (the reference re-applies B here,
-    `src/gram/gram_impl.inc:49-67` — at the measured 2M x 128 profile
-    each [n, m] B application is ~9 ms, ~4% of the iteration)."""
+    `src/gram/gram_impl.inc:49-67`)."""
     return herm_tile_gram(blocks, Bblocks, out_dtype)
 
 

@@ -7,7 +7,7 @@ extraction), `src/rayleigh/bubble_sort_sig_impl.inc:9-48` (signature
 sort order: positives ascending, then negatives descending, then
 zero-signature entries last).
 
-TPU re-design: the GGEV projected solve runs through ops.pencil
+On-device design: the GGEV projected solve runs through ops.pencil
 (on-device Cholesky+eigh fast path by default); the bubble sort becomes
 a stable lexsort; sentinel (masked-coordinate) eigenpairs are detected by
 their coordinate mass, assigned signature 0, and therefore sort last —
@@ -114,7 +114,6 @@ def indefinite_rayleigh_ritz_modified(
     max_inner: int = 3,
     rr_dtype=None,
     Bblocks=None,
-    pack=True,
 ) -> IndefiniteRRResult:
     """Per-iteration indefinite RR over the masked [X|P|W] subspace.
 
@@ -137,7 +136,7 @@ def indefinite_rayleigh_ritz_modified(
     # No tall [n, 3m] masking copy (see rayleigh_ritz_modified): the
     # inject_diag below zeroes dead Gram rows/cols exactly; blocks keep
     # the concatenated S out of HBM entirely.
-    GA = _a_gram(blocks, AX, A, out_dtype=rr_dtype, pack=pack)
+    GA = _a_gram(blocks, AX, A, out_dtype=rr_dtype)
     GB = (
         gram_blocks(blocks, B, out_dtype=rr_dtype) if Bblocks is None
         else gram_blocks_pre(blocks, Bblocks, out_dtype=rr_dtype)

@@ -1,4 +1,4 @@
-"""Active-column masking: the TPU-native replacement for the reference's
+"""Active-column masking: the fixed-shape replacement for the reference's
 dynamic-shape column dropping and memmove compaction.
 
 The C code shrinks arrays when SVQB drops columns

@@ -89,7 +89,7 @@ def _svqb_inner_loop(
     ortho_indefinite by ||U||^2 (`ortho_indefinite_impl.inc:141-151`).
     Returns (U, BU, nu).
 
-    ``seed_done`` (the ortho_skip experiment, VERDICT r3 ask 3):
+    ``seed_done`` (the ortho_skip experiment):
     evaluate the convergence criterion on the SEED state (G0/BU0) so an
     already-orthonormal entry skips the SVQB pass entirely — on outer
     passes >= 2 the projection often no longer perturbs U, and the
@@ -124,7 +124,7 @@ def _svqb_inner_loop(
 
 def _entry_state(U, nu, B, vb, Bvb, BV_norm, eps_ortho, eps_drop,
                  rr_dtype, *, indefinite):
-    """ortho_skip entry check (VERDICT r3 ask 3): is U already
+    """ortho_skip entry check: is U already
     B-orthonormal up to COLUMN SCALING, and B-orthogonal to V?
 
     Column scaling first: W arrives unnormalized (fresh residuals /
@@ -136,7 +136,7 @@ def _entry_state(U, nu, B, vb, Bvb, BV_norm, eps_ortho, eps_drop,
     and the scaled U (with its matching BU) is the result.  Cost when
     not skipped: one B application + two k x k contractions.
 
-    Degenerate-column floor (ADVICE r4): the 1/sqrt(|G_ii|) scaling
+    Degenerate-column floor: the 1/sqrt(|G_ii|) scaling
     amplifies a near-B-null column by a huge factor, and if the scaled
     Gram then happens to pass the eps_ortho test the skip would bypass
     the SVQB eps_drop machinery that exists to DROP such columns — so

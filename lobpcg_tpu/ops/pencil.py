@@ -11,16 +11,16 @@ part 1) this module provides:
   M = F^H GB F, eigh(M) = (mu, Q), lambda = 1/mu, v = F Q, and
   v^H GB v = mu so the signature is sign(mu) for free.  F comes from
   eigh of the Jacobi-scaled GA (F = D U s^{-1/2}), NOT from
-  chol + trsm: on TPU `jnp.linalg.cholesky` / `solve_triangular` lower
-  to XLA expanders whose internal dots run at DEFAULT precision — bf16
-  passes for f32 operands — which caps the factorable condition number
-  near 1/eps_bf16 and silently destroyed every pencil solve at width
-  768 (measured: 20k x 150 ss=256 f32 ran 300 iterations with 299
-  rr_fails on TPU while the identical solve converges in 10 iterations
-  on CPU; results_r5.jsonl exp d2).  The TPU eigh pins full-f32 matmul
-  precision internally and every congruence here goes through
-  ops.gram.mm (Precision.HIGHEST), so the reduction is now
-  uniformly accurate on both backends.  Fully on-device, no host
+  chol + trsm: on a backend where `jnp.linalg.cholesky` /
+  `solve_triangular` lower to XLA expanders whose internal dots run at
+  DEFAULT precision (reduced-precision passes for f32 operands), the
+  factorable condition number is capped near 1/eps of that precision —
+  on the previous accelerator this silently destroyed every pencil
+  solve at width 768 (20k x 150 ss=256 f32: 300 iterations, 299
+  rr_fails, where the CPU converged in 10).  eigh keeps full precision
+  and every congruence here goes through ops.gram.mm
+  (Precision.HIGHEST), so the reduction does not depend on the
+  backend's factorization precision.  Fully on-device, no host
   round-trip inside the solver loop.
   When GA is *indefinite*, a definite-combination ladder (KPS Thm 2.3:
   any definite pencil admits an HPD combination c GA + s GB) retries the
@@ -67,8 +67,7 @@ def _kps_reduce(F_safe: jax.Array, GBh: jax.Array, tiny: float):
     Derivation: M q = mu q with M = F^H GB F and v = F q gives
     (F F^H) GB v = mu v, i.e. GB v = mu C v, i.e. C v = (1/mu) GB v;
     and v^H GB v = q^H M q = mu (the signature for free).  All
-    contractions at Precision.HIGHEST (ops.gram.mm); eigh pins full-f32
-    matmul precision internally on TPU.
+    contractions at Precision.HIGHEST (ops.gram.mm).
     """
     rdt = jnp.zeros((), GBh.dtype).real.dtype
     M = mm(F_safe.conj().T, mm(GBh, F_safe))

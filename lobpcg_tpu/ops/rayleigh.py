@@ -9,13 +9,11 @@ On-device design notes:
 - The B-Gram whitening transform (the reference's potrf + trsm_run,
   `rayleigh_ritz_impl.inc:60-75`) is computed SPECTRALLY — eigh of the
   Jacobi-scaled Gram, DiR = D U s^{-1/2} — never via
-  `jnp.linalg.cholesky`/`solve_triangular`: on TPU those lower to XLA
-  expanders whose internal dots run at DEFAULT precision (bf16 passes
-  for f32), capping the factorable condition number near 1/eps_bf16 —
-  measured destroying every width-768 pencil solve (ops/pencil.py
-  docstring, results_r5.jsonl exp d2).  Non-definiteness (eigh s_min
-  <= 0) is signalled with the reference's `useOrtho = 2` retry flag,
-  exactly like the old potrf-NaN detection.
+  `jnp.linalg.cholesky`/`solve_triangular`, whose XLA expanders may run
+  their internal dots at DEFAULT (reduced) precision and cap the
+  factorable condition number (ops/pencil.py docstring).
+  Non-definiteness (eigh s_min <= 0) is signalled with the reference's
+  `useOrtho = 2` retry flag, exactly like the old potrf-NaN detection.
 - The triangular condition check replaces LAPACK's `trcon` 1-norm
   *estimator* with the exact spectral rcond of the scaled Gram
   (sqrt(s_min/s_max) — the same quantity trcon estimates for the
@@ -59,8 +57,8 @@ class RRResult(NamedTuple):
 def _whiten_block(M):
     """Spectral whitening of ONE Hermitian block: F = D U s^{-1/2} from
     eigh(D M D) = U s U^H satisfies F^H M F = I when M is HPD.  Stays
-    full-precision on TPU where the cholesky/triangular-solve expanders
-    emit default-precision (bf16) dots (see ops.pencil._whiten_scored).
+    full-precision where the cholesky/triangular-solve expanders may
+    emit default-precision dots (see ops.pencil._whiten_scored).
 
     Dead coordinates (exactly isolated identity rows/cols by the
     inject_diag invariant) are ordinary unit eigendirections of the
@@ -91,10 +89,9 @@ def _block_dinv_r(G, nx: int):
 
     Replaces the reference's potrf + trsm_run pipeline
     (`rayleigh_ritz_impl.inc:60-75`) without jnp.linalg.cholesky /
-    solve_triangular — on TPU those lower to XLA expanders whose
-    internal dots run at DEFAULT precision (bf16 for f32 operands),
-    capping the factorable condition number near 1/eps_bf16 (measured
-    killing every width-768 pencil solve, ops/pencil.py docstring).
+    solve_triangular, whose XLA expanders may run their internal dots at
+    DEFAULT (reduced) precision and cap the factorable condition number
+    (ops/pencil.py docstring).
 
     The block-triangular structure is LOAD-BEARING, not cosmetic:
     Duersch's Cp extraction (_cp_extract) reads the first nx rows of
@@ -167,11 +164,11 @@ def _cp_extract(Z, nx: int, DiR: Optional[jax.Array], n_live):
     p_count = jnp.clip(n_live - nx, 0, nx).astype(jnp.int32)
     Zp = masking.mask_cols(Zp, zp_live)
     Z1t = jnp.swapaxes(Zp[:nx, :], 0, 1)  # [k-nx, nx]
-    # jnp.linalg.qr is DELIBERATE here despite its TPU default-precision
-    # (bf16) internal dots — unlike the whitening transforms (see
+    # jnp.linalg.qr is DELIBERATE here despite possible default-precision
+    # internal dots — unlike the whitening transforms (see
     # _block_dinv_r), Q's orthonormality is not load-bearing: P is never
     # assumed orthonormal downstream (the next RR's Gram whitening
-    # absorbs its conditioning), so bf16-level orthogonality error only
+    # absorbs its conditioning), so reduced-precision orthogonality error only
     # perturbs the momentum directions slightly.  A Gram-eigh
     # orthonormalization was tried instead and is WORSE: for a
     # rank-deficient Z1t (late-stage W ~ 0) it rsqrt-amplifies
@@ -216,22 +213,18 @@ def rayleigh_ritz(
     return Cx.astype(X.dtype), w
 
 
-def _a_gram(blocks, AX, A, out_dtype=None, pack=True):
+def _a_gram(blocks, AX, A, out_dtype=None):
     """G_A = S^H A S assembled per column block of S = [X | P | W];
     reuses the AX cache for the X block (`rayleigh_ritz_modified_impl.inc:
     71-78, 189-196`).  S is never concatenated and only upper-triangle
     tall contractions run (A Hermitian; see ops.gram.herm_tile_gram —
-    the lower tiles are mirrored, 6 MXU dots instead of 9).  With
-    ``pack`` (and an operator whose fast path needs the combined lane-
-    aligned width, e.g. the stencil at size_sub 64), the A@P and A@W
-    applications fuse into one [n, 2m] kernel-rate call
-    (ops.gram.applied_blocks); otherwise applications stay one block at
-    a time so only a single [n, m] transient is live.
+    the lower tiles are mirrored, 6 dots instead of 9).  Applications
+    run one block at a time, so only a single [n, m] transient is live.
     """
     from lobpcg_tpu.ops.gram import applied_blocks, herm_tile_gram
 
     pre = {0: AX} if AX is not None else {}
-    applied = applied_blocks(A, blocks, pre, pack=pack)
+    applied = applied_blocks(A, blocks, pre)
     return herm_tile_gram(blocks, applied, out_dtype)
 
 
@@ -248,7 +241,6 @@ def rayleigh_ritz_modified(
     tol_skip: float = 5e-3,
     rr_dtype=None,
     Bblocks=None,
-    pack=True,
 ) -> RRResult:
     """Per-iteration RR over the masked [X|P|W] subspace.
 
@@ -273,7 +265,7 @@ def rayleigh_ritz_modified(
     # which costs O(k^2) instead of two resident n x 3m buffers — the
     # single largest HBM consumer at capacity-bound sizes.
     GA = masking.inject_diag(
-        _a_gram(blocks, AX, A, out_dtype=rr_dtype, pack=pack), live, 0.0
+        _a_gram(blocks, AX, A, out_dtype=rr_dtype), live, 0.0
     )
     sdt = blocks_dtype(S)
 

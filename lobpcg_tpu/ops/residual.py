@@ -81,9 +81,9 @@ def estimate_norm(
 
     ``block`` > 1 runs the power iteration on a [n, block] block — each
     column normalized independently, the estimate is the max per-column
-    growth.  On TPU a [n, 1] operand wastes the 128-lane datapath, so a
-    [n, 8] block costs the same wall-clock per step while giving 8
-    independent starts — materially better estimates for clustered
+    growth.  A [n, 8] block streams A once per step, like a [n, 1]
+    one, while giving 8 independent starts — materially better
+    estimates for clustered
     spectra (a single random start can have tiny overlap with the
     dominant eigenspace).  block=1 reproduces the reference exactly.
     """

@@ -3,7 +3,7 @@
 Reference: `src/ortho/svqb_impl.inc:48-106` (operator metric) and
 `src/ortho/svqb_mat_impl.inc:49-100` (dense metric, no dropping).
 
-TPU re-design: the Gram eigendecomposition runs on the tiny k x k matrix
+On-device design: the Gram eigendecomposition runs on the tiny k x k matrix
 on device (`eigh`), and column dropping becomes a stable argsort
 compaction over a fixed width — the retained count travels as an i32
 scalar instead of a shrinking shape.  Dead (masked) coordinates are kept

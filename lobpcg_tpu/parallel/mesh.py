@@ -4,7 +4,7 @@ The reference is single-process (OpenMP + threaded MKL only,
 `/root/reference/Makefile:3,12`); distribution is designed fresh here per
 SURVEY.md §2.6: a 1-D mesh over the problem's row dimension.  The tall
 blocks S=[X|P|W], AX, and the operator data are sharded over `rows`;
-Gram contractions then lower to local partial products + psum over ICI,
+Gram contractions then lower to local partial products + psum,
 and the tiny k x k projected eigensolves stay replicated.
 """
 
@@ -24,30 +24,17 @@ def row_mesh(
     devices: Optional[Sequence[jax.Device]] = None,
     axis: str = ROWS,
 ) -> Mesh:
-    """1-D mesh over the row axis.  Defaults to all local devices."""
+    """1-D mesh over the row axis.  Defaults to all devices of the default
+    backend; asking for more devices than it has is an error (never a
+    silent mesh of some other backend's devices)."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
         if len(devices) < n_devices:
-            # Fall back to the virtual CPU backend (tests / dry-runs on a
-            # single-chip host) — loudly, so accelerator benchmarks can
-            # never silently report CPU numbers.
-            cpu = jax.devices("cpu")
-            if len(cpu) >= n_devices:
-                import warnings
-
-                warnings.warn(
-                    f"row_mesh: only {len(devices)} accelerator device(s) "
-                    f"available; building the {n_devices}-device mesh from "
-                    "CPU devices — compute will run on CPU",
-                    stacklevel=2,
-                )
-                devices = cpu
-            else:
-                raise ValueError(
-                    f"need {n_devices} devices, have {len(devices)} "
-                    f"(+{len(cpu)} cpu)"
-                )
+            raise ValueError(
+                f"need {n_devices} devices, have {len(devices)} "
+                f"({devices[0].platform if devices else 'none'})"
+            )
         devices = devices[:n_devices]
     return Mesh(np.asarray(devices), (axis,))
 

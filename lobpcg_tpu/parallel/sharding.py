@@ -3,7 +3,7 @@
 Design (SURVEY.md §2.6): operators and tall blocks are 1-D row-partitioned
 over the mesh; XLA's SPMD partitioner then turns
 
-- `S^H B S` Gram contractions into local GEMMs + `psum` over ICI,
+- `S^H B S` Gram contractions into local GEMMs + `psum`,
 - stencil operator applications into local stencils + halo
   `collective-permute`s,
 - the k x k projected eigensolves into replicated compute,

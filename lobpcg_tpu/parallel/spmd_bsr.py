@@ -1,8 +1,8 @@
 """Row-sharded block-ELL (BSR) SpMM with neighbor halo exchange.
 
 SURVEY.md §2.6: the distributed operator application is a local SpMM
-plus remote-row exchange over ICI.  For banded matrices (RCM reordering
-via the native library keeps general sparse matrices banded,
+plus remote-row exchange.  For banded matrices (RCM reordering via the
+native library keeps general sparse matrices banded,
 `native/sparse_prep.cpp`), every remote block row a shard needs lives
 within `halo` block rows of its boundary, so the exchange is two
 `ppermute`s of fixed-width edge bands — no all-gather, no all-to-all.
@@ -10,18 +10,11 @@ within `halo` block rows of its boundary, so the exchange is two
 Host-side planning (here, NumPy on the ELL arrays):
 - block-row partition: nb block rows split evenly over the mesh,
 - halo width: max reach |block_col - block_row| over all stored blocks
-  (must be < block rows per shard; RCM-reorder first if it is not),
-- per-shard strip-window re-expansion against the halo-EXTENDED local
-  column frame (one uniform window width across shards), so the local
-  SpMM runs the same MXU strip-window kernel the single-chip operator
-  uses (ops/pallas/bsr.bsr_window_matmat_pallas).
+  (must be < block rows per shard; RCM-reorder first if it is not).
 
 Device side (`shard_map`): exchange edge bands, concatenate
-[halo_up | X_local | halo_dn], and run the strip-window Pallas kernel
-(one contiguous gather DMA + one [strip, W] x [W, k] MXU contraction per
-strip) on the extended local block.  Shapes the kernel cannot take
-(k % 128 != 0, non-f32, no window plan) fall back to remapped
-gather+einsum, as before.
+[halo_up | X_local | halo_dn], remap the global block columns into that
+extended local frame, and run the gather + einsum SpMM on it.
 """
 
 from __future__ import annotations
@@ -33,6 +26,7 @@ from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from lobpcg_tpu.operators.linop import LinearOperator, operator
+from lobpcg_tpu.operators.sparse import bsr_matmat_reference
 from lobpcg_tpu.parallel.mesh import ROWS
 
 
@@ -45,49 +39,26 @@ def _ell_halo_width(block_cols: np.ndarray, blocks: np.ndarray) -> int:
     return int(reach.max()) if nb else 0
 
 
-def _safe_cols(cols: np.ndarray, blocks: np.ndarray) -> np.ndarray:
-    """Re-point zero-valued (padding) blocks at their row's first real
-    block column (its own row index if the row is empty): the global ELL
-    convention 'padding = col 0' breaks under the shift into a shard's
-    extended local frame — col 0 remaps to an arbitrary offset and would
-    inflate the window span.  Zero values keep padding contributing
-    nothing wherever it points."""
-    nb, R = cols.shape
-    val_nz = np.abs(blocks).reshape(nb, R, -1).any(axis=2)
-    big = np.int64(1) << 40
-    first = np.where(val_nz, cols.astype(np.int64), big).min(axis=1)
-    first = np.where(first == big, np.arange(nb), first)
-    return np.where(val_nz, cols, first[:, None]).astype(cols.dtype)
-
-
 @operator(
-    data_fields=("block_cols", "blocks", "win_lo", "win_vals"),
-    meta_fields=("n", "bs", "halo", "mesh", "axis", "pallas"),
+    data_fields=("block_cols", "blocks"),
+    meta_fields=("n", "bs", "halo", "mesh", "axis"),
 )
 class ShardedBSROperator(LinearOperator):
     """Block-ELL sparse operator, block-row sharded with halo exchange.
 
     Build with `ShardedBSROperator.shard(op, mesh)` from a BSROperator.
-    ``pallas``: "auto" runs the shard-local SpMM through the strip-window
-    Pallas kernel on TPU when a window plan exists and the shapes
-    qualify; "interpret" forces the Mosaic interpreter (CPU tests);
-    "off" always uses the gather+einsum fallback.
     """
 
     block_cols: jax.Array  # [nb, R] i32, global block-column indices
     blocks: jax.Array  # [nb, R, bs, bs]
-    win_lo: jax.Array = None  # [nd, ns_loc] i32, extended-frame starts
-    win_vals: jax.Array = None  # [nd, ns_loc, strip, W]
     n: int = 0
     bs: int = 0
     halo: int = 0
     mesh: Mesh = None
     axis: str = ROWS
-    pallas: str = "auto"
 
     @classmethod
-    def shard(cls, op, mesh: Mesh, axis: str = ROWS,
-              pallas: str = "auto") -> "ShardedBSROperator":
+    def shard(cls, op, mesh: Mesh, axis: str = ROWS) -> "ShardedBSROperator":
         """Plan and place a BSROperator onto the mesh."""
         cols = np.asarray(op.block_cols)
         blocks = np.asarray(op.blocks)
@@ -102,79 +73,21 @@ class ShardedBSROperator(LinearOperator):
                 "RCM-reorder the matrix (utils.native.rcm_order) or use "
                 "fewer shards"
             )
-
-        # Per-shard strip-window plan against the extended local frame.
-        from lobpcg_tpu.ops.pallas.bsr import (
-            bsr_window_widths,
-            ell_to_strip_window,
-        )
-        import math
-
-        nb_loc = nb // nd
-        nb_ext = nb_loc + 2 * halo
-        strip = bs * (-(-256 // bs))
-        safe = _safe_cols(cols, blocks)
-        win_lo = win_vals = None
-        loc_cols = []
-        spans = []
-        for d in range(nd):
-            sl = slice(d * nb_loc, (d + 1) * nb_loc)
-            c = safe[sl] - np.int64(d * nb_loc - halo)
-            loc_cols.append(c)
-            spans.append(bsr_window_widths(c, blocks[sl], strip=strip))
-        span = max(spans)
-        step = math.lcm(bs, 128) // bs
-        Wb = -(-span // step) * step
-        # Same windowability gate as BSROperator.from_csr (on the raw
-        # span, pre-rounding): padding every strip to the max span must
-        # not blow up storage.
-        if span * bs <= 4096 and span <= 4 * R + 16 and Wb <= nb_ext:
-            los, wins = [], []
-            for d in range(nd):
-                sl = slice(d * nb_loc, (d + 1) * nb_loc)
-                lo_d, win_d = ell_to_strip_window(
-                    loc_cols[d], blocks[sl], strip=strip,
-                    ncols=nb_ext, force_width=Wb,
-                )
-                los.append(lo_d)
-                wins.append(win_d)
-            win_lo = jax.device_put(
-                jnp.asarray(np.stack(los), jnp.int32),
-                NamedSharding(mesh, P(axis, None)),
-            )
-            win_vals = jax.device_put(
-                jnp.asarray(np.stack(wins), blocks.dtype),
-                NamedSharding(mesh, P(axis, *([None] * 3))),
-            )
-
-        row_shard = NamedSharding(mesh, P(axis, *([None] * 3)))
         return cls(
             block_cols=jax.device_put(
                 jnp.asarray(cols, jnp.int32),
                 NamedSharding(mesh, P(axis, None)),
             ),
-            blocks=jax.device_put(jnp.asarray(blocks), row_shard),
-            win_lo=win_lo,
-            win_vals=win_vals,
+            blocks=jax.device_put(
+                jnp.asarray(blocks),
+                NamedSharding(mesh, P(axis, None, None, None)),
+            ),
             n=op.n,
             bs=bs,
             halo=halo,
             mesh=mesh,
             axis=axis,
-            pallas=pallas,
         )
-
-    def _kernel_ok(self, k: int) -> bool:
-        """Static gate for the shard-local strip-window kernel path."""
-        if self.win_vals is None or self.pallas == "off":
-            return False
-        if self.pallas != "interpret" and jax.default_backend() != "tpu":
-            return False
-        if self.dtype != jnp.float32 or k % 128 or self.bs % 8:
-            return False
-        _, _, strip, W = self.win_vals.shape
-        vmem = 4 * (2 * strip * W + 2 * W * k + 2 * strip * k)
-        return vmem <= 12 * (1 << 20)
 
     def matmat(self, X: jax.Array) -> jax.Array:
         nb = self.n // self.bs
@@ -182,100 +95,35 @@ class ShardedBSROperator(LinearOperator):
         nb_loc = nb // nd
         H = self.halo
         bs = self.bs
-        k = X.shape[1]
         axis = self.axis
-        use_kernel = self._kernel_ok(k)
 
-        Wr = self.win_vals.shape[3] if use_kernel else 0
-        use_edges = use_kernel and H > 0 and Wr <= nb_loc * bs
-
-        def local(cols, blocks, xs, *win):
+        def local(cols, blocks, xs):
             # cols: [nb_loc, R]; blocks: [nb_loc, R, bs, bs];
-            # xs: [nb_loc * bs, k]; win: ([1, ns], [1, ns, strip, W]) or ()
+            # xs: [nb_loc * bs, k]
             idx = jax.lax.axis_index(axis)
-            hrows = H * bs
-
             if H > 0:
+                hrows = H * bs
                 fwd = [(i, i + 1) for i in range(nd - 1)]
                 bwd = [(i + 1, i) for i in range(nd - 1)]
                 halo_up = jax.lax.ppermute(xs[-hrows:], axis, perm=fwd)
                 halo_dn = jax.lax.ppermute(xs[:hrows], axis, perm=bwd)
-            if use_edges:
-                # Edge-buffer fast path (VERDICT r4 ask 5): skip the
-                # full extended-frame concatenate — an extra read+write
-                # of the whole local X per apply, measured as the 82%
-                # local-rate gap (results_r4.jsonl 2s2) — and hand the
-                # kernel the local block plus two SMALL boundary
-                # buffers; it classifies each strip's gather source by
-                # window start.
-                from lobpcg_tpu.ops.pallas.bsr import (
-                    bsr_window_matmat_pallas_edges,
-                )
-
-                lo, wv = win
-                edge_top = jnp.concatenate([halo_up, xs[:Wr]], axis=0)
-                edge_bot = jnp.concatenate([xs[-Wr:], halo_dn], axis=0)
-                return bsr_window_matmat_pallas_edges(
-                    lo[0], wv[0], xs, edge_top, edge_bot, bs=bs,
-                    hrows=hrows,
-                    interpret=(self.pallas == "interpret"),
-                    out_rows=nb_loc * bs, vma=(axis,),
-                )
-            if H > 0:
                 x_ext = jnp.concatenate([halo_up, xs, halo_dn], axis=0)
             else:
                 x_ext = xs
-
-            if use_kernel:
-                # Shard-local SpMM at kernel rate: one contiguous gather
-                # DMA + one [strip, W] x [W, k] MXU contraction per
-                # strip, exactly the single-chip fast path
-                # (ops/pallas/bsr.py) applied to the extended local
-                # block.  The window plan was built against the extended
-                # frame at shard time.
-                from lobpcg_tpu.ops.pallas.bsr import (
-                    bsr_window_matmat_pallas,
-                )
-
-                lo, wv = win
-                return bsr_window_matmat_pallas(
-                    lo[0], wv[0], x_ext, bs=bs,
-                    interpret=(self.pallas == "interpret"),
-                    out_rows=nb_loc * bs, vma=(axis,),
-                )
-
             # Remap global block cols into the extended local frame;
             # padding blocks are zero so a clamped index is harmless.
             loc = jnp.clip(
                 cols - (idx * nb_loc - H), 0, nb_loc + 2 * H - 1
             )
-            xb = x_ext.reshape(nb_loc + 2 * H, bs, k)
-            xg = xb[loc]  # [nb_loc, R, bs, k]
-            y = jnp.einsum(
-                "nrij,nrjk->nik", blocks, xg,
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=xs.dtype,
-            )
-            return y.reshape(nb_loc * bs, k)
+            return bsr_matmat_reference(loc, blocks, x_ext)
 
-        win_args = (
-            (self.win_lo, self.win_vals) if use_kernel else ()
-        )
-        win_specs = (
-            (P(axis, None), P(axis, None, None, None)) if use_kernel
-            else ()
-        )
-        # check_vma off on the kernel path (see spmd_stencil.py: the
-        # pallas interpreter's internal index constants trip the vma
-        # checker; JAX suggests this workaround in its error message).
         return shard_map(
             local,
             mesh=self.mesh,
             in_specs=(P(axis, None), P(axis, None, None, None),
-                      P(axis, None)) + win_specs,
+                      P(axis, None)),
             out_specs=P(axis, None),
-            check_vma=not use_kernel,
-        )(self.block_cols, self.blocks, X, *win_args)
+        )(self.block_cols, self.blocks, X)
 
     @property
     def shape(self):

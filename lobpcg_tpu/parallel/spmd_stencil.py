@@ -2,9 +2,9 @@
 
 SURVEY.md §2.6 plan of record: row-partition the operator and the tall
 blocks over the mesh; stencil application needs only neighbor-row
-exchange, done here with two `ppermute`s over ICI (one row up, one row
-down) overlapped by XLA's latency-hiding scheduler with the local
-stencil compute.  This is the deterministic, collective-explicit
+exchange, done here with two `ppermute`s (one row up, one row down)
+overlapped by XLA's latency-hiding scheduler with the local stencil
+compute.  This is the deterministic, collective-explicit
 alternative to letting the SPMD partitioner derive halos from pad/slice
 patterns.
 
@@ -33,18 +33,8 @@ def stencil_matmat_spmd(
     *,
     num_segments: int = 1,
     axis: str = ROWS,
-    pallas: str = "auto",
 ) -> jax.Array:
-    """Y = scale * tridiag[-1, 2, -1] X per row segment, X row-sharded.
-
-    ``pallas``: "auto" runs the shard-LOCAL compute through the Pallas
-    streaming stencil kernel (ops/pallas/stencil.py) when the local
-    shapes qualify on a real TPU backend — inside the shard_map body the
-    arrays are ordinary local arrays, so `pallas_call` is legal and the
-    ppermute'd halo rows feed the kernel's edge-row input; "interpret"
-    forces the kernel through the Mosaic interpreter (CPU tests); "off"
-    keeps the concatenate/shift-add jnp formulation everywhere.
-    """
+    """Y = scale * tridiag[-1, 2, -1] X per row segment, X row-sharded."""
     n, k = X.shape
     nd = mesh.shape[axis]
     if n % (num_segments * nd):
@@ -64,16 +54,6 @@ def stencil_matmat_spmd(
             f"segment length {seg} and shard rows {local_rows} must divide "
             "one another (segment boundaries would fall inside a shard)"
         )
-
-    from lobpcg_tpu.ops.pallas.stencil import (
-        stencil_matmat_pallas,
-        stencil_shape_ok,
-    )
-
-    seg_local = min(seg, local_rows)  # segment length inside one shard
-    use_kernel = pallas != "off" and stencil_shape_ok(
-        local_rows, k, local_rows // seg_local, X.dtype
-    ) and (pallas == "interpret" or jax.default_backend() == "tpu")
 
     def local(xs):
         # xs: [local_rows, k] on this shard.
@@ -96,22 +76,6 @@ def stencil_matmat_spmd(
         halo_up = jnp.where(starts_seg, jnp.zeros_like(halo_up), halo_up)
         halo_dn = jnp.where(ends_seg, jnp.zeros_like(halo_dn), halo_dn)
 
-        if use_kernel:
-            # Local compute at kernel rate: the validation above
-            # guarantees either the shard holds whole segments
-            # (seg <= local_rows: interior boundaries handled by the
-            # kernel's own segment masking, shard-edge halos zeroed by
-            # the masks just computed) or the shard sits inside one
-            # segment (num_segments=1 locally).  Either way the
-            # ppermute'd rows enter through the kernel's edge-row input.
-            edge = jnp.concatenate([halo_up, halo_dn], axis=0)  # [2, k]
-            return stencil_matmat_pallas(
-                xs, jnp.asarray(scale, X.dtype), edge,
-                num_segments=local_rows // seg_local,
-                interpret=(pallas == "interpret"),
-                vma=(axis,),
-            )
-
         down = jnp.concatenate([halo_up, xs[:-1]], axis=0)  # x_{i-1}
         up = jnp.concatenate([xs[1:], halo_dn], axis=0)  # x_{i+1}
 
@@ -129,42 +93,27 @@ def stencil_matmat_spmd(
 
         return scale * (2.0 * xs - up - down)
 
-    # check_vma off on the kernel path: pallas_call's interpreter (and
-    # its internal grid bookkeeping) creates index constants with empty
-    # varying-mesh-axes sets, which the vma checker rejects against the
-    # varying operands (JAX suggests exactly this workaround in the
-    # error).  The jnp path keeps the check.
     return shard_map(
         local,
         mesh=mesh,
         in_specs=P(axis, None),
         out_specs=P(axis, None),
-        check_vma=not use_kernel,
     )(X)
 
 
 def _rewrite(op, mesh: Mesh, axis: str):
-    """Recursively replace stencil operators with sharding-safe forms:
-    Laplacian1D -> explicit shard_map halo exchange; LaplacianND ->
-    force_jnp (pallas_call has no SPMD partitioning rule, so its per-axis
-    fast path must not run on sharded arrays)."""
-    import dataclasses as _dc
+    """Recursively replace Laplacian1D with the explicit shard_map halo
+    exchange (other operators keep their partitioner-derived halos)."""
+    import dataclasses
 
-    from lobpcg_tpu.operators.linop import Laplacian1D
-    from lobpcg_tpu.operators.stencil_nd import LaplacianND
+    from lobpcg_tpu.operators.linop import Laplacian1D, LinearOperator
 
     if isinstance(op, Laplacian1D):
         return SpmdLaplacian1D(
             scale=op.scale, n=op.n, segments=op.segments, mesh=mesh,
             axis=axis,
         )
-    if isinstance(op, LaplacianND):
-        return _dc.replace(op, force_jnp=True)
     # Recurse into operator-valued fields (Sum/Composed/BlockDiag/...).
-    import dataclasses
-
-    from lobpcg_tpu.operators.linop import LinearOperator
-
     if dataclasses.is_dataclass(op):
         changes = {}
         for f in dataclasses.fields(op):
@@ -187,18 +136,14 @@ from lobpcg_tpu.operators.linop import LinearOperator, operator  # noqa: E402
 
 @operator(
     data_fields=("scale",),
-    meta_fields=("n", "segments", "mesh", "axis", "pallas"),
+    meta_fields=("n", "segments", "mesh", "axis"),
 )
 class SpmdLaplacian1D(LinearOperator):
     """Laplacian1D with explicit shard_map halo exchange over `mesh`.
 
     Produced by `use_spmd_stencils` / `shard_problem(..., spmd_stencil=True)`;
     behaves identically to Laplacian1D but lowers to local compute plus
-    two `ppermute`s instead of partitioner-derived halos.  The local
-    compute runs the Pallas streaming kernel when the per-shard shapes
-    qualify (``pallas="auto"``; see stencil_matmat_spmd) — the ppermute'd
-    halo rows feed the kernel's edge-row input, so a multi-chip run
-    applies the stencil at single-chip kernel rate per shard.
+    two `ppermute`s instead of partitioner-derived halos.
     """
 
     scale: jax.Array
@@ -206,26 +151,11 @@ class SpmdLaplacian1D(LinearOperator):
     segments: int = 1
     mesh: Mesh = None
     axis: str = ROWS
-    pallas: str = "auto"
-
-    def apply_width_ok(self, k):
-        from lobpcg_tpu.ops.pallas.stencil import stencil_shape_ok
-
-        if self.pallas == "off" or (
-            self.pallas != "interpret" and jax.default_backend() != "tpu"
-        ):
-            return True  # jnp local path is width-indifferent
-        nd = self.mesh.shape[self.axis]
-        local_rows = self.n // nd
-        seg_local = min(self.n // self.segments, local_rows)
-        return stencil_shape_ok(
-            local_rows, k, local_rows // seg_local, self.dtype
-        )
 
     def matmat(self, X):
         return stencil_matmat_spmd(
             X, self.scale, self.mesh, num_segments=self.segments,
-            axis=self.axis, pallas=self.pallas,
+            axis=self.axis,
         )
 
     @property

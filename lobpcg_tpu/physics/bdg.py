@@ -4,7 +4,7 @@ The reference planned but never built this layer
 (`/root/reference/TODO.md:281-291`: "matmulK (kinetic + trap +
 interactions)", "matmulM (kinetic + 3*interactions + dipolar)",
 "preconditioner"; `README.md:56`).  This module implements that
-capability TPU-natively on top of the operator algebra.
+capability on top of the operator algebra.
 
 For a real condensate wavefunction psi with density n = |psi|^2 and
 contact coupling g, the linearized excitations in the f_+/- = u +- v
@@ -22,8 +22,8 @@ branch, `tests/test_ilobpcg.c:194-204` pattern).
 
 The dipolar exchange term of M is a convolution — supply it as an extra
 LinearOperator via `dipolar=` (FFT-applied on backends with complex
-support; on the complex-free TPU runtime use a real-kernel convolution
-or the realified path).
+support; elsewhere use a real-kernel convolution or the realified
+path).
 
 The preconditioner slot: `bdg_preconditioner` builds either a Jacobi
 inverse-diagonal or a Chebyshev approximate inverse of diag(M, K).

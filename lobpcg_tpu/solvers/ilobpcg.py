@@ -29,7 +29,6 @@ from lobpcg_tpu.ops import masking
 from lobpcg_tpu.ops.gram import (
     with_gram_ctx,
     apply_block_op,
-    apply_block_op_pair,
     b_mm,
     mm,
 )
@@ -181,11 +180,8 @@ def _ilobpcg_impl(A, B, T, X0, key, config: SolverConfig, P0=None,
         # applications per iteration than re-applying at each site the
         # way the reference does (`gram_impl.inc:49-67`).
         if config.use_b_cache:
-            if config.pack_applies:
-                BX, BP = apply_block_op_pair(B, c.X, c.P)
-            else:
-                BX = apply_block_op(B, c.X)
-                BP = apply_block_op(B, c.P)
+            BX = apply_block_op(B, c.X)
+            BP = apply_block_op(B, c.P)
             W, nw, BW = ortho_indefinite(
                 W, nw, (c.X, c.P), m + np_act, B,
                 eps_ortho=eps_ortho, eps_drop=eps_drop,
@@ -210,7 +206,7 @@ def _ilobpcg_impl(A, B, T, X0, key, config: SolverConfig, P0=None,
             nx=m, method=config.rr_method, tiny=tn, quality_tol=qt,
             eps_ortho=eps_ortho, eps_drop=eps_drop,
             max_outer=config.max_outer, max_inner=config.max_inner,
-            rr_dtype=rrdt, Bblocks=Bblocks, pack=config.pack_applies,
+            rr_dtype=rrdt, Bblocks=Bblocks,
         )
 
         def project_good(_):
@@ -256,11 +252,10 @@ def _ilobpcg_impl(A, B, T, X0, key, config: SolverConfig, P0=None,
             # the next iteration restarts from a clean [X, W] subspace.
             # B is re-applied here rather than reusing the cached BX:
             # referencing BX would keep it live across the whole
-            # project-back cond, raising peak HBM by one [n, m] block at
-            # its hottest point (measured +0.95 GB at 4M x 64,
-            # benchmarks/mem_analysis.py — the difference between fitting
-            # a 16 GB v5e and ResourceExhausted); one extra B apply on
-            # the rare failure path is the cheap side of that trade.
+            # project-back cond, raising peak device memory by one
+            # [n, m] block at its hottest point (benchmarks/
+            # mem_analysis.py shows it); one extra B apply on the rare
+            # failure path is the cheap side of that trade.
             Wres = get_residual(
                 c.X, c.AX if config.use_ax_cache else None, c.lam, A, B,
             )

@@ -26,7 +26,6 @@ from lobpcg_tpu.ops import masking
 from lobpcg_tpu.ops.gram import (
     with_gram_ctx,
     apply_block_op,
-    apply_block_op_pair,
     b_mm,
     mm,
 )
@@ -185,11 +184,8 @@ def _lobpcg_impl(A, B, T, X0, key, config: SolverConfig, P0=None,
         # projector and the RR B-Gram; the no-ortho branch applies B@W
         # itself (1 application, replacing the 3 the B-Gram would do).
         if cache_b:
-            if config.pack_applies:
-                BX, BP = apply_block_op_pair(B, c.X, c.P)
-            else:
-                BX = apply_block_op(B, c.X)
-                BP = apply_block_op(B, c.P)
+            BX = apply_block_op(B, c.X)
+            BP = apply_block_op(B, c.P)
             Bvb = (BX, BP)
             W, nw, BW = jax.lax.cond(
                 c.use_ortho >= 1,
@@ -221,7 +217,6 @@ def _lobpcg_impl(A, B, T, X0, key, config: SolverConfig, P0=None,
             tol_skip=config.tol_skip,
             rr_dtype=rrdt,
             Bblocks=Bblocks,
-            pack=config.pack_applies,
         )
 
         # Cholesky/cond failure: orthogonalize W and retry with the ortho
@@ -246,7 +241,6 @@ def _lobpcg_impl(A, B, T, X0, key, config: SolverConfig, P0=None,
                 tol_skip=config.tol_skip,
                 rr_dtype=rrdt,
                 Bblocks=Bb2,
-                pack=config.pack_applies,
             )
             return rr2, W2, jnp.int32(1)
 
@@ -349,7 +343,7 @@ def _check_rr_chunk_unsharded(config: SolverConfig, *objs) -> None:
     [n, k] -> [n/c, c, k] reshape, which conflicts with a leading axis
     sharded over more than one device (GSPMD must gather or repartition
     the tall blocks at every chunked contraction).  Raise up front
-    instead of tracing a silently catastrophic program (ADVICE r4).
+    instead of tracing a silently catastrophic program.
     Only concrete arrays can be inspected; tracer inputs skip the check.
     """
     if not config.rr_chunk_rows:
@@ -442,7 +436,7 @@ def lobpcg(
     from lobpcg_tpu.ops import gram
 
     # Tracing (first call per config/shape) bakes the Gram-contraction
-    # MXU precision into the program; cached calls ignore the context.
+    # contraction precision into the program; cached calls ignore the context.
     with gram.precision_ctx(config.gram_precision), \
             gram.mixed_chunk_ctx(config.rr_chunk_rows):
         r = fn(A, B, T, X0, key, config, P0, p0_cnt, it_cap)

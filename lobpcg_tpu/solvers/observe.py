@@ -2,8 +2,8 @@
 
 The reference gates per-iteration printf on an int8 verbosity field
 (`src/core/lobpcg_impl.inc:89-90,118-124,230-238`).  Under jit the
-equivalents are `jax.debug.print` (streams from device at run time, TPU
-included) and fixed-shape history arrays carried through the while_loop.
+equivalents are `jax.debug.print` (streams from device at run time)
+and fixed-shape history arrays carried through the while_loop.
 Both are selected *statically* from SolverConfig so the silent path
 compiles to nothing.
 """

@@ -108,8 +108,8 @@ def solve_checkpointed(
     # ONE static config for every chunk (max_iter=every sizes the
     # history arrays); the varying chunk length is the *runtime* it_cap,
     # so all chunks — including a short tail — share a single compile
-    # (the per-chunk-shape recompile cost minutes per distinct chunk
-    # size on TPU).
+    # (a full-size solve recompiles for tens of seconds per distinct
+    # chunk size).
     cfg = dataclasses.replace(config, max_iter=every)
     if P is None:
         # Explicit zero momentum: keeps the jitted signature identical

@@ -1,11 +1,16 @@
 """ctypes bindings for the native sparse-preprocessing library
 (native/sparse_prep.cpp), with pure-NumPy fallbacks so the package works
-before `make -C native` has run.
+where no C++ compiler is available.
 
-The native layer covers the host-side runtime work around the TPU compute
-path: operator assembly (COO->CSR), BSR blocking for the Pallas SpMM
-kernel, RCM bandwidth reduction, and row-partition/halo planning for the
-mesh (SURVEY.md §2.6 native-component obligation).
+The library is built from source on first use (or by `make -C native`)
+into native/libsparse_prep.so, which git does not track.  The build
+writes a process-private file and renames it into place, so concurrent
+first users (parallel test workers) never load a half-written library.
+
+The native layer covers the host-side runtime work around the device
+compute path: operator assembly (COO->CSR), BSR blocking for the block-
+ELL SpMM, RCM bandwidth reduction, and row-partition/halo planning for
+the mesh (SURVEY.md §2.6 native-component obligation).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,8 +36,28 @@ def _lib_path() -> pathlib.Path:
     )
 
 
+def build_library() -> bool:
+    """Compile native/sparse_prep.cpp into native/libsparse_prep.so.
+
+    Returns False (leaving no partial file) when the compiler is missing
+    or fails.  The same flags as native/Makefile."""
+    out = _lib_path()
+    src = out.with_name("sparse_prep.cpp")
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "c++"), "-O3", "-std=c++17", "-fPIC",
+           "-shared", "-o", str(tmp), str(src)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, out)
+        return True
+    except (OSError, subprocess.CalledProcessError):
+        tmp.unlink(missing_ok=True)
+        return False
+
+
 def load_library(path: Optional[str] = None) -> Optional[ctypes.CDLL]:
-    """Load (and memoize) the native library; None if unavailable."""
+    """Load (and memoize) the native library, building it on first use;
+    None if unavailable."""
     global _LIB, _LIB_TRIED
     if _LIB is not None:
         return _LIB
@@ -39,7 +65,7 @@ def load_library(path: Optional[str] = None) -> Optional[ctypes.CDLL]:
         return None
     _LIB_TRIED = True
     p = pathlib.Path(path) if path else _lib_path()
-    if not p.exists():
+    if not p.exists() and (path or not build_library()):
         return None
     lib = ctypes.CDLL(str(p))
     i64p = ctypes.POINTER(ctypes.c_int64)

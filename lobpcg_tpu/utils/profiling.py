@@ -1,7 +1,7 @@
 """Profiling / timing helpers.
 
 The reference has no profiler (SURVEY.md §5: a past "profiling" branch
-left only vestigial struct fields).  On TPU the right tools are XLA
+left only vestigial struct fields).  On an accelerator the right tools are XLA
 traces and wall-clock timing of whole jitted solves; these wrappers keep
 that one import away.
 """
@@ -16,7 +16,7 @@ import jax
 
 @contextlib.contextmanager
 def trace(logdir):
-    """XLA/TPU profiler trace around a block; view with TensorBoard or
+    """XLA device profiler trace around a block; view with TensorBoard or
     xprof (`jax.profiler.trace` under the hood)."""
     with jax.profiler.trace(str(logdir)):
         yield

@@ -1,12 +1,12 @@
 // sparse_prep: native host-side preprocessing for sparse operators.
 //
 // The reference keeps operators matrix-free behind a matvec callback
-// (`/root/reference/include/lobpcg/linop.h`); a production TPU framework
+// (`/root/reference/include/lobpcg/linop.h`); an accelerator framework
 // additionally needs *materialized* sparse operators prepared into
-// TPU-friendly layouts:
+// device-friendly layouts:
 //   - COO -> CSR conversion (operator assembly / ingest),
-//   - CSR -> BSR blocking (the Pallas SpMM kernel consumes dense
-//     (bs x bs) blocks so the MXU/VPU see contiguous tiles),
+//   - CSR -> BSR blocking (the block-ELL SpMM consumes dense
+//     (bs x bs) blocks as contiguous tiles),
 //   - reverse Cuthill-McKee reordering (bandwidth reduction so BSR
 //     blocks are dense and halo exchanges stay neighbor-local),
 //   - contiguous row partition + halo plan for the row-sharded mesh.

@@ -105,8 +105,8 @@ def test_solve_checkpointed_ilobpcg(tmp_path):
 def test_solve_checkpointed_single_compile(tmp_path):
     """Chunked solving must not recompile per chunk size: the tail chunk
     (max_iter % every != 0) goes through the runtime it_cap, so the
-    whole run adds exactly ONE trace to the jit cache (on TPU each
-    chunk-shape recompile costs minutes)."""
+    whole run adds exactly ONE trace to the jit cache (a full-size
+    recompile per chunk shape costs tens of seconds)."""
     from lobpcg_tpu.solvers.lobpcg import _lobpcg_jit
 
     n, nev, ss = 100, 3, 6

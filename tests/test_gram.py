@@ -84,8 +84,8 @@ def test_ortho_err_respects_mask():
 
 
 def test_mixed_chunk_hdot_matches_unchunked():
-    """Row-chunked widened Grams (mixed_chunk_ctx: the TPU f64-emulation
-    memory fix) accumulate the same f64 values as the unchunked dot up
+    """Row-chunked widened Grams (mixed_chunk_ctx: the f64-emulation
+    memory bound) accumulate the same f64 values as the unchunked dot up
     to addition order, handle the non-divisible-row remainder, and stay
     off for non-widened dots and sub-threshold sizes."""
     import jax

@@ -244,7 +244,7 @@ def test_chebyshev_preconditioned_solver():
 def test_generalized_pencil_b_residual_norm():
     """residual_norm="b" on the generalized diagonal (Jacobi-style)
     pencil: converges to the same eigenvalues as the 2-norm default and
-    reports B-seminorm residuals (VERDICT r3 ask 7; fixes the reference
+    reports B-seminorm residuals (fixes the reference
     defect `residual_impl.inc:83-91`)."""
     from lobpcg_tpu import SolverConfig
 

@@ -1,4 +1,4 @@
-"""Fixed-shape masking primitives (ops/masking.py) — the TPU-native
+"""Fixed-shape masking primitives (ops/masking.py) — the fixed-shape
 replacement for the reference's dynamic shapes (SURVEY.md §7 hard part 2)."""
 
 import numpy as np

@@ -2,7 +2,7 @@
 A x = lambda B x with user preconditioner T (Jacobi/diagonal), mixed
 float/double").
 
-Storage / operator applications in f32 (the TPU-fast path), Gram
+Storage / operator applications in f32 (the fast path), Gram
 accumulation + projected eigensolves in f64 via SolverConfig.rr_dtype.
 """
 
@@ -114,7 +114,7 @@ def test_mixed_vs_pure_consistency(rr_dtype):
 
 
 def test_ilobpcg_rr_chunk_rows_end_to_end():
-    """rr_chunk_rows (the TPU f64-emulation memory fix) solves the BdG
+    """rr_chunk_rows (the f64-emulation memory bound) solves the BdG
     mixed-precision pencil to the same eigenvalues as the unchunked
     escalated path — including a non-divisible chunk remainder."""
     m, nev, ss = 100, 3, 6  # n = 200 rows -> chunks of 64 + remainder 8

@@ -1,5 +1,5 @@
 """Observability: verbosity logging + per-iteration history recording
-(the TPU-native replacement for the reference's verbosity printf,
+(the jit-compatible replacement for the reference's verbosity printf,
 `src/core/lobpcg_impl.inc:118-124,230-238`)."""
 
 import numpy as np

@@ -1,137 +1,19 @@
-"""Lane packing (apply_block_op_pair / applied_blocks) and the
-ortho_skip entry check — VERDICT r3 asks 2 and 3.
-
-The packing decision itself is TPU lane economics (apply_width_ok is
-always True on CPU operators), so these tests drive the mechanics with a
-mock operator that declares a width preference, and check solver-level
-equivalence of the knobs on the reference fixtures.
-"""
-
-import dataclasses
+"""The ortho_skip entry check: skip the projection+SVQB pass when W is
+already (B-)orthonormal up to column scaling, and only then."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from lobpcg_tpu import (
     BlockAntiDiagOperator,
     BlockDiagOperator,
-    DenseOperator,
     Laplacian1D,
     SolverConfig,
     ilobpcg,
-    lobpcg,
-)
-from lobpcg_tpu.operators.linop import LinearOperator, operator
-from lobpcg_tpu.ops.gram import (
-    _hdot,
-    apply_block_op_pair,
-    applied_blocks,
-    gram_self,
 )
 from lobpcg_tpu.ops.ortho import ortho_drop, ortho_indefinite
 from fixtures import rand_block
-
-
-@operator(data_fields=("A",), meta_fields=("lane",))
-class _WidthFussyOperator(LinearOperator):
-    """Dense operator that claims its fast path needs k % lane == 0 and
-    records every applied width in a class-level log."""
-
-    A: jax.Array
-    lane: int = 4
-    log = []  # class attribute: shared call log
-
-    def apply_width_ok(self, k):
-        return k % self.lane == 0
-
-    def matmat(self, X):
-        _WidthFussyOperator.log.append(X.shape[1])
-        return jnp.matmul(self.A, X, preferred_element_type=X.dtype)
-
-    @property
-    def shape(self):
-        return self.A.shape
-
-    @property
-    def dtype(self):
-        return self.A.dtype
-
-
-def _fussy(n, lane, seed=0):
-    M = np.asarray(rand_block(seed, n, n, jnp.float64))
-    A = DenseOperator(A=jnp.asarray(M + M.T))
-    return _WidthFussyOperator(A=A.A, lane=lane), np.asarray(A.A)
-
-
-def test_pair_packs_when_single_width_misses_fast_path():
-    op, M = _fussy(16, lane=4)
-    U = rand_block(1, 16, 2, jnp.float64)
-    V = rand_block(2, 16, 2, jnp.float64)
-    _WidthFussyOperator.log.clear()
-    Yu, Yv = apply_block_op_pair(op, U, V)
-    assert _WidthFussyOperator.log == [4]  # one packed [n, 4] call
-    np.testing.assert_allclose(np.asarray(Yu), M @ np.asarray(U), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(Yv), M @ np.asarray(V), atol=1e-12)
-
-
-def test_pair_stays_separate_when_width_ok():
-    op, M = _fussy(16, lane=2)  # width 2 already fine
-    U = rand_block(1, 16, 2, jnp.float64)
-    V = rand_block(2, 16, 2, jnp.float64)
-    _WidthFussyOperator.log.clear()
-    apply_block_op_pair(op, U, V)
-    assert _WidthFussyOperator.log == [2, 2]
-
-
-def test_applied_blocks_packs_remaining_pair_past_cache():
-    """The _a_gram pattern: AX cached for block 0, A@P and A@W pack."""
-    op, M = _fussy(16, lane=4)
-    X, P, W = (rand_block(i, 16, 2, jnp.float64) for i in range(3))
-    AX = jnp.matmul(op.A, X)
-    _WidthFussyOperator.log.clear()
-    applied = applied_blocks(op, (X, P, W), pre={0: AX})
-    assert _WidthFussyOperator.log == [4]  # P|W in one call
-    for b, a in zip((X, P, W), applied):
-        np.testing.assert_allclose(
-            np.asarray(a), M @ np.asarray(b), atol=1e-12
-        )
-    # pack=False: strictly sequential singles.
-    _WidthFussyOperator.log.clear()
-    applied_blocks(op, (X, P, W), pre={0: AX}, pack=False)
-    assert _WidthFussyOperator.log == [2, 2]
-
-
-def test_apply_width_ok_delegation():
-    """Wrapper operators delegate the width contract to their inner op
-    (the BdG composition BlockDiag(stencil) must expose the stencil's
-    lane preference to the packing sites)."""
-    K = Laplacian1D(scale=jnp.float64(1.0), n=64)
-    A = BlockDiagOperator(inner=K, copies=2)
-    # CPU backend: stencils are width-indifferent there.
-    assert A.apply_width_ok(3) is True
-    op, _ = _fussy(16, lane=4)
-    assert BlockDiagOperator(inner=op, copies=2).apply_width_ok(2) is False
-    assert BlockDiagOperator(inner=op, copies=2).apply_width_ok(4) is True
-    assert (2.0 * op).apply_width_ok(2) is False
-    assert (op + DenseOperator(A=op.A)).apply_width_ok(2) is False
-
-
-@pytest.mark.parametrize("pack", [True, False])
-def test_solver_pack_knob_parity(pack):
-    """pack_applies must not change results (packing is layout only)."""
-    n, nev, ss = 96, 3, 6
-    h = 1.0 / (n + 1)
-    A = Laplacian1D(scale=jnp.asarray(1.0 / (h * h), jnp.float64), n=n)
-    X0 = rand_block(5, n, ss, jnp.float64)
-    cfg = SolverConfig(nev=nev, size_sub=ss, tol=1e-7, max_iter=200,
-                       pack_applies=pack)
-    r = lobpcg(A, X0, config=cfg)
-    analytic = (np.arange(1, nev + 1) * np.pi) ** 2
-    np.testing.assert_allclose(
-        np.asarray(r.eigenvalues), analytic, rtol=1e-2
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +90,7 @@ def test_ilobpcg_ortho_skip_parity(skip):
 
 
 def test_entry_check_floor_blocks_degenerate_column_skip():
-    """A near-B-null column must NOT skip (ADVICE r4): the 1/sqrt|G_ii|
+    """A near-B-null column must NOT skip: the 1/sqrt|G_ii|
     scaling would amplify it past the SVQB eps_drop machinery."""
     from lobpcg_tpu.ops.gram import as_blocks, frob_norm
     from lobpcg_tpu.ops.ortho import _entry_state, _guard

@@ -68,7 +68,7 @@ def test_cholesky_and_qz_agree():
 def test_cholesky_ladder_solves_indefinite_ga():
     """Indefinite GA, definite pencil: the definite-combination ladder
     keeps the Cholesky path fully on-device (the reference handles this
-    via LAPACK GGEV, `blas_wrapper.h:489-519`; VERDICT r1 item 5)."""
+    via LAPACK GGEV, `blas_wrapper.h:489-519`)."""
     k = 5
     rng = np.random.RandomState(4)
     M = rng.randn(k, k)

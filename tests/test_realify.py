@@ -114,7 +114,7 @@ def test_realify_x0_layout():
 
 
 def test_realify_downcast_dtype():
-    """complex128-specified operator realified to f32 for TPU runs."""
+    """complex128-specified operator realified to f32 storage."""
     A = DenseOperator(jnp.asarray(_hermitian(8, 6), jnp.complex128))
     Ar = realify_operator(A, rdt=jnp.float32)
     assert Ar.dtype == jnp.float32

@@ -71,7 +71,7 @@ def test_sharded_output_layout(mesh):
 
 
 def test_rr_chunk_rows_rejects_row_sharded_inputs(mesh):
-    """rr_chunk_rows + a row-sharded X0 must raise up front (ADVICE r4):
+    """rr_chunk_rows + a row-sharded X0 must raise up front:
     the chunking reshape conflicts with a sharded leading axis."""
     from lobpcg_tpu import SolverConfig
 
@@ -86,3 +86,12 @@ def test_rr_chunk_rows_rejects_row_sharded_inputs(mesh):
     # Unsharded inputs with the same config stay accepted.
     r = lobpcg(A, X0, config=cfg)
     assert int(r.iterations) > 0
+
+
+def test_row_mesh_raises_when_too_few_devices():
+    """More devices than the default backend has is an error — never a
+    mesh quietly built from another backend's devices."""
+    n = len(jax.devices())
+    assert row_mesh(n).devices.size == n
+    with pytest.raises(ValueError, match=f"need {n + 1} devices"):
+        row_mesh(n + 1)

@@ -125,107 +125,32 @@ def test_bsr_3d_laplacian_10_eigenpairs():
     )
 
 
-def test_bsr_pallas_interpret_matches_reference():
-    """Pallas BSR kernel in interpreter mode == gather/einsum reference."""
-    from lobpcg_tpu.ops.pallas.bsr import (
-        bsr_matmat_pallas,
-        bsr_matmat_reference,
-    )
-
-    M = _rand_sparse(64, 0.1, 6)
-    op = BSROperator.from_dense(M.toarray(), block_size=8, dtype=jnp.float32)
-    X = jnp.asarray(np.random.RandomState(7).randn(64, 128), jnp.float32)
-    Y_ref = bsr_matmat_reference(op.block_cols, op.blocks, X)
-    Y_pal = bsr_matmat_pallas(op.block_cols, op.blocks, X, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(Y_pal), np.asarray(Y_ref), rtol=1e-5, atol=1e-4
-    )
-
-
-def test_strip_ell_interpret_matches_reference():
-    """Strip-ELL conversion + kernel (interpret) == gather/einsum
-    reference, over block sizes and a non-multiple-of-128 n."""
-    from lobpcg_tpu.ops.pallas.bsr import (
-        bsr_matmat_reference,
-        bsr_strip_matmat_pallas,
-        ell_to_strip_ell,
-    )
-
-    rng = np.random.RandomState(3)
-    for (n, bs) in [(256, 8), (256, 16), (200, 8)]:
-        M = _rand_sparse(n, 0.08, 4)
-        op = BSROperator.from_dense(
-            M.toarray(), block_size=bs, dtype=jnp.float32
-        )
-        X = jnp.asarray(rng.randn(n, 128), jnp.float32)
-        Y_ref = bsr_matmat_reference(op.block_cols, op.blocks, X)
-        sc, sv = ell_to_strip_ell(op.block_cols, op.blocks)
-        Y = bsr_strip_matmat_pallas(
-            jnp.asarray(sc), jnp.asarray(sv), X, bs=bs, interpret=True
-        )
-        np.testing.assert_allclose(
-            np.asarray(Y), np.asarray(Y_ref), rtol=1e-5, atol=1e-4
-        )
-
-
-def test_bsr_operator_carries_window_format():
-    """Constructors build the strip-window fast-path arrays for
-    windowable (banded-ish) matrices."""
-    M = _rand_sparse(128, 0.1, 9)
-    op = BSROperator.from_dense(M.toarray(), block_size=8,
-                                dtype=jnp.float32)
-    assert op.win_lo is not None and op.win_vals is not None
-    assert op.win_vals.shape[1] == 256  # default strip (r3 sweep)
-
-
-def test_strip_window_interpret_matches_reference():
-    """Strip-window conversion + kernel (interpret) == gather/einsum
-    reference, banded and scattered-but-windowable cases."""
-    from lobpcg_tpu.ops.pallas.bsr import (
-        bsr_matmat_reference,
-        bsr_window_matmat_pallas,
-        ell_to_strip_window,
-    )
-
-    rng = np.random.RandomState(5)
-    for (n, bs, band) in [(256, 8, 8), (384, 8, 24), (256, 16, 16),
-                          (200, 8, 16)]:
-        A = np.zeros((n, n))
-        for d in range(-band, band + 1):
-            A += np.diag(rng.randn(n - abs(d)), d)
-        op = BSROperator.from_dense(A, block_size=bs, dtype=jnp.float32)
-        lo, wv = ell_to_strip_window(op.block_cols, op.blocks)
-        X = jnp.asarray(rng.randn(n, 128), jnp.float32)
-        Y = bsr_window_matmat_pallas(
-            jnp.asarray(lo), jnp.asarray(wv), X, bs=bs, interpret=True
-        )
-        Y_ref = bsr_matmat_reference(op.block_cols, op.blocks, X)
-        np.testing.assert_allclose(
-            np.asarray(Y), np.asarray(Y_ref), rtol=1e-5, atol=1e-4
-        )
-
-
-@pytest.mark.parametrize("bs", [8, 24, 64])
-def test_bsr_strip_rounds_to_block_multiple(bs):
-    """The window strip defaults to ~256 rows rounded UP to a block-row
-    multiple; block sizes that don't divide 256 (bs=24 -> strip 264)
-    must still construct and match dense (regression: ell_to_strip_window
-    raised `block size must divide strip` for bs=24)."""
-    rng = np.random.RandomState(bs)
-    nb = 24
+def _block_banded(nb, bs, band, seed):
+    """Dense matrix whose nonzero blocks lie within `band` block
+    diagonals of the main one."""
+    rng = np.random.RandomState(seed)
     n = nb * bs
-    dense = np.zeros((n, n))
+    A = np.zeros((n, n))
     for i in range(nb):
-        for j in range(max(0, i - 2), min(nb, i + 3)):
-            dense[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = rng.randn(
-                bs, bs)
-    dense = dense + dense.T + 10 * np.eye(n)
-    op = BSROperator.from_dense(jnp.asarray(dense), block_size=bs,
-                                dtype=jnp.float64)
-    if op.win_vals is not None:
-        strip = op.win_vals.shape[1]
-        assert strip % bs == 0 and strip >= 256
-    X = jnp.asarray(rng.randn(n, 8))
-    ref = dense @ np.asarray(X)
-    np.testing.assert_allclose(np.asarray(op.matmat(X)), ref,
-                               rtol=1e-12, atol=1e-9 * np.abs(ref).max())
+        for j in range(max(0, i - band), min(nb, i + band + 1)):
+            A[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = rng.randn(bs, bs)
+    return A
+
+
+@pytest.mark.parametrize("band", [0, 2])
+@pytest.mark.parametrize("bs", [8, 24, 64])
+def test_bsr_reference_matches_dense(bs, band):
+    """bsr_matmat_reference (the one BSR SpMM) == dense product, over
+    block sizes that do and do not divide 128 and two bandwidths."""
+    from lobpcg_tpu.operators.sparse import bsr_matmat_reference
+
+    nb = 12
+    A = _block_banded(nb, bs, band, seed=bs + band)
+    op = BSROperator.from_dense(A, block_size=bs, dtype=jnp.float64)
+    assert op.block_cols.shape == (nb, min(nb, 2 * band + 1))
+    X = jnp.asarray(np.random.RandomState(bs).randn(nb * bs, 5))
+    ref = A @ np.asarray(X)
+    Y = bsr_matmat_reference(op.block_cols, op.blocks, X)
+    np.testing.assert_allclose(np.asarray(Y), ref, rtol=1e-12,
+                               atol=1e-12 * np.abs(ref).max())
+    np.testing.assert_array_equal(np.asarray(op.matmat(X)), np.asarray(Y))

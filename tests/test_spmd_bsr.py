@@ -85,40 +85,6 @@ def test_rcm_enables_sharding():
     np.testing.assert_allclose(Y, A_rcm @ np.asarray(X), atol=1e-10)
 
 
-@pytest.mark.parametrize("nd", [2, 4])
-def test_sharded_bsr_window_kernel_matches_dense(nd):
-    """VERDICT r3 ask 1: the shard-local SpMM runs the strip-window
-    Pallas kernel (interpret on CPU) against the halo-extended frame."""
-    n, bw, k = 2048, 17, 128
-    A = _banded_matrix(n, bw)
-    op = BSROperator.from_dense(A, block_size=8, dtype=jnp.float32)
-    mesh = row_mesh(nd)
-    sop = ShardedBSROperator.shard(op, mesh, pallas="interpret")
-    assert sop.win_vals is not None  # per-shard window plan built
-    assert sop._kernel_ok(k)
-    X = rand_block(3, n, k, jnp.float32)
-    with mesh:
-        Y = np.asarray(sop.matmat(X))
-    ref = A @ np.asarray(X, np.float64)
-    assert np.abs(Y - ref).max() / np.abs(ref).max() < 1e-5
-
-
-def test_sharded_bsr_window_small_shard_fallback():
-    """Shards too small for the lane-rounded window width must skip the
-    window plan and stay correct through the gather+einsum local path."""
-    n, bw = 2048, 17
-    A = _banded_matrix(n, bw)
-    op = BSROperator.from_dense(A, block_size=8, dtype=jnp.float32)
-    mesh = row_mesh(8)  # 32 block rows/shard < 48-block window
-    sop = ShardedBSROperator.shard(op, mesh, pallas="interpret")
-    assert sop.win_vals is None
-    X = rand_block(3, n, 128, jnp.float32)
-    with mesh:
-        Y = np.asarray(sop.matmat(X))
-    ref = A @ np.asarray(X, np.float64)
-    assert np.abs(Y - ref).max() / np.abs(ref).max() < 1e-5
-
-
 def test_sharded_bsr_in_solver():
     """3-D Laplacian solved through the sharded BSR path matches the
     unsharded solve."""
@@ -141,63 +107,3 @@ def test_sharded_bsr_in_solver():
         r = lobpcg(sop, X0s, nev=3, size_sub=6, tol=1e-7, max_iter=300)
         lam = np.asarray(r.eigenvalues)
     np.testing.assert_allclose(lam, np.asarray(ref.eigenvalues), rtol=1e-9)
-
-
-def test_edge_buffer_kernel_matches_extended_frame():
-    """VERDICT r4 ask 5: the edge-buffer kernel (no extended-frame
-    concatenate) computes exactly what the extended-frame kernel does,
-    for every window-start class (top edge / body / bottom edge)."""
-    import jax
-
-    from lobpcg_tpu.ops.pallas.bsr import (
-        bsr_window_matmat_pallas,
-        bsr_window_matmat_pallas_edges,
-        ell_to_strip_window,
-    )
-
-    n, bw, k, bs = 2048, 17, 128, 8
-    # An INTERIOR shard (the middle third of a 3x-taller banded matrix):
-    # its first/last strips reach outside the local rows, so window
-    # starts land strictly below hrows / beyond the local block — the
-    # top/bottom edge-buffer source classes a whole-matrix "shard"
-    # never produces (its boundary rows have nothing to reach into).
-    A = _banded_matrix(3 * n, bw).astype(np.float32)
-    op = BSROperator.from_dense(A, block_size=bs, dtype=jnp.float32)
-    nb = n // bs
-    sl = slice(nb, 2 * nb)
-    from lobpcg_tpu.parallel.spmd_bsr import _ell_halo_width, _safe_cols
-
-    cols_all = np.asarray(op.block_cols)
-    blocks_all = np.asarray(op.blocks)
-    H = _ell_halo_width(cols_all, blocks_all)
-    hrows = H * bs
-    blocks = blocks_all[sl]
-    # global -> extended local frame (rows [nb - H, 2 nb + H))
-    cols = _safe_cols(cols_all, blocks_all)[sl] - (nb - H)
-    lo, wv = ell_to_strip_window(cols, blocks, ncols=nb + 2 * H)
-    rng = np.random.RandomState(11)
-    xs = jnp.asarray(rng.randn(n, k), jnp.float32)
-    halo_up = jnp.asarray(rng.randn(hrows, k), jnp.float32)
-    halo_dn = jnp.asarray(rng.randn(hrows, k), jnp.float32)
-    x_ext = jnp.concatenate([halo_up, xs, halo_dn], axis=0)
-
-    Wr = wv.shape[2]
-    assert Wr <= n  # edges-kernel precondition
-    lo_j = jnp.asarray(lo, jnp.int32)
-    wv_j = jnp.asarray(wv, jnp.float32)
-    y_ref = bsr_window_matmat_pallas(
-        lo_j, wv_j, x_ext, bs=bs, interpret=True, out_rows=n
-    )
-    edge_top = jnp.concatenate([halo_up, xs[:Wr]], axis=0)
-    edge_bot = jnp.concatenate([xs[-Wr:], halo_dn], axis=0)
-    y_edges = bsr_window_matmat_pallas_edges(
-        lo_j, wv_j, xs, edge_top, edge_bot, bs=bs, hrows=hrows,
-        interpret=True, out_rows=n
-    )
-    # starts must cover all three source classes for the test to mean
-    # anything
-    starts = lo * bs
-    assert (starts < hrows).any()
-    assert (starts > hrows + n - Wr).any()
-    assert ((starts >= hrows) & (starts <= hrows + n - Wr)).any()
-    np.testing.assert_array_equal(np.asarray(y_edges), np.asarray(y_ref))

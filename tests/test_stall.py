@@ -1,11 +1,11 @@
-"""Stagnation stabilizer (SolverConfig.stall_reset) — VERDICT r4 ask 4.
+"""Stagnation stabilizer (SolverConfig.stall_reset).
 
 The reference driver has no stagnation handling: near the f32
 convergence floor a failed projected-pencil solve discards the iteration
 and rebuilds W from X deterministically (`ilobpcg_impl.inc:228-256`
 carries garbage; our do_recover discards), so the retry can cycle —
-measured in round 4 as a 5.6x iteration spread across bit-identical
-problems (results_r4.jsonl 8a-8d).  stall_reset perturbs W with
+measured on the previous accelerator as a 5.6x iteration spread across
+bit-identical problems.  stall_reset perturbs W with
 column-norm-scaled noise after K non-improving iterations (rr-failed
 iterations jump the counter to the threshold).
 

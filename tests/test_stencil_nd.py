@@ -74,31 +74,58 @@ def test_3d_sharded():
 
 
 def test_sharded_rewrite_forces_jnp():
-    """shard_problem must disable the Pallas per-axis dispatch for
-    LaplacianND (pallas_call has no SPMD partitioning rule)."""
+    """shard_problem keeps LaplacianND's plain jnp form (the partitioner
+    derives its halos) and only places its data on the mesh."""
     nx = 8
     A = LaplacianND(scale=jnp.asarray(1.0, jnp.float64), grid=(nx, nx, nx))
     mesh = row_mesh(4)
     As, _, _, _ = shard_problem(mesh, A)
-    assert As.force_jnp
+    assert isinstance(As, LaplacianND) and As.grid == A.grid
+    X = rand_block(4, nx**3, 3, jnp.float64)
+    with mesh:
+        Y = np.asarray(As.matmat(X))
+    np.testing.assert_allclose(Y, np.asarray(A.matmat(X)), atol=1e-12)
 
 
-def test_fused_3d_kernel_interpret_matches_separable():
-    """Fused single-pass 7-point kernel (interpret mode) == the
-    separable jnp formulation, including all Dirichlet faces."""
-    from lobpcg_tpu.ops.pallas.stencil3d import stencil3d_matmat_pallas
+def _lap1d(m):
+    import scipy.sparse as sp
 
-    for (g, k, By) in [((6, 16, 4), 32, 16), ((5, 32, 2), 64, 16),
-                       ((3, 16, 1), 128, 8), ((4, 16, 8), 128, 8),
-                       ((3, 24, 16), 64, 8)]:
-        n = g[0] * g[1] * g[2]
-        X = rand_block(9, n, k, jnp.float32)
-        Y = stencil3d_matmat_pallas(
-            X, jnp.float32(1.3), grid_shape=g, By=By, interpret=True
-        )
-        ref = LaplacianND(
-            scale=jnp.float32(1.3), grid=g, force_jnp=True
-        ).matmat(X)
-        np.testing.assert_allclose(
-            np.asarray(Y), np.asarray(ref), atol=1e-4
-        )
+    return sp.diags([-np.ones(m - 1), 2 * np.ones(m), -np.ones(m - 1)],
+                    [-1, 0, 1])
+
+
+def _nd_csr(grid, scale):
+    """Kronecker-sum Dirichlet Laplacian on `grid` (C-order), times scale."""
+    import scipy.sparse as sp
+
+    L = None
+    for ax, m in enumerate(grid):
+        term = None
+        for j, mj in enumerate(grid):
+            f = _lap1d(mj) if j == ax else sp.identity(mj)
+            term = f if term is None else sp.kron(term, f)
+        L = term if L is None else L + term
+    return (scale * L).tocsr()
+
+
+@pytest.mark.parametrize("k", [1, 8, 128])
+@pytest.mark.parametrize("grid", [(7, 5), (4, 6, 5)])
+def test_nd_matches_csr(grid, k):
+    """LaplacianND (one fused sum of per-axis stencils) == the explicit
+    Kronecker-sum matrix in 2-D and 3-D, at several block widths; the
+    3-D matrix is also the one laplacian_3d_csr assembles."""
+    h = 1.0 / (max(grid) + 1)
+    scale = 1.0 / (h * h)
+    A = LaplacianND(scale=jnp.asarray(scale, jnp.float64), grid=grid)
+    M = _nd_csr(grid, scale)
+    if len(grid) == 3:
+        import scipy.sparse as sp
+
+        ip, ix, v = laplacian_3d_csr(*grid)
+        M3 = sp.csr_matrix((v, ix, ip), shape=M.shape)
+        assert abs(M3 - M).max() < 1e-9 * scale
+    X = rand_block(6, int(np.prod(grid)), k, jnp.float64)
+    np.testing.assert_allclose(
+        np.asarray(A.matmat(X)), M @ np.asarray(X), rtol=1e-12,
+        atol=1e-12 * scale,
+    )
